@@ -1,0 +1,89 @@
+"""Shared helpers of the PyTorch port's parity tests (``test_torch_*.py``):
+flax parameter trees as flat numpy dicts, seeded perturbation of zero-init
+parameters, and injected noise tables shared by both packages."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+from flax import linen as nn
+
+
+def flatten(tree, prefix="") -> dict[str, np.ndarray]:
+    out = {}
+    tree = nn.meta.unbox(tree)
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = np.asarray(v, np.float32)
+    return out
+
+
+def unflatten(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for k, v in flat.items():
+        node = tree
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = jnp.asarray(v)
+    return tree
+
+
+def perturbed(params, seed: int, scale: float = 0.1) -> dict[str, np.ndarray]:
+    """Flat params plus seeded noise, so zero-initialised tables (AdaLN,
+    biases, the timestep FiLM) take part in the comparison."""
+    rs = np.random.RandomState(seed)
+    return {k: (v + scale * rs.randn(*v.shape)).astype(np.float32)
+            for k, v in flatten(params).items()}
+
+
+def t(a, dtype=None):
+    """numpy → torch (CPU)."""
+    x = torch.from_numpy(np.ascontiguousarray(a))
+    return x.to(dtype) if dtype is not None else x
+
+
+class TableKeys:
+    """Port-side stand-in for ``RowKeys``: ``fold(tag)`` selects a tag and
+    ``gumbel(shape)`` returns the table's noise for it, so both packages
+    sample from the same numbers."""
+
+    def __init__(self, tables: dict, tag=None):
+        self.tables, self.tag = tables, tag
+
+    def fold(self, tag):
+        return TableKeys(self.tables, int(tag))
+
+    def gumbel(self, shape, device="cpu"):
+        return torch.from_numpy(self.tables[(self.tag, len(shape))]).to(device)
+
+
+def patch_jax_noise(monkeypatch, module, tables: dict):
+    """Make ``module``'s ``fold_rows`` carry the tag and its ``row_gumbel``
+    return the same table as ``TableKeys`` (traced tags index a stacked
+    table, so this also works inside ``lax.scan``)."""
+    by_rank: dict[int, list] = {}
+    for (tag, rank), arr in sorted(tables.items()):
+        by_rank.setdefault(rank, []).append((tag, arr))
+    stacked = {}
+    for rank, items in by_rank.items():
+        n = max(tag for tag, _ in items) + 1
+        shape = items[0][1].shape
+        full = np.zeros((n, *shape), np.float32)
+        for tag, arr in items:
+            full[tag] = arr
+        stacked[rank] = jnp.asarray(full)
+
+    def fold_rows(row_keys, tag):
+        B = row_keys.shape[0]
+        return jnp.stack([jnp.full((B,), tag, jnp.int32), jnp.arange(B, dtype=jnp.int32)], 1)
+
+    def row_gumbel(row_keys, shape, dtype=jnp.float32):
+        return stacked[len(shape)][row_keys[0, 0]].astype(dtype)
+
+    monkeypatch.setattr(module, "fold_rows", fold_rows)
+    monkeypatch.setattr(module, "row_gumbel", row_gumbel)

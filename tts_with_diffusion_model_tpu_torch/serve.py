@@ -1,0 +1,238 @@
+"""Serving runtime for a D3PM first stage with MaskGIT decoding (counterpart
+of ``serve.Synthesizer`` in the JAX package).
+
+One device batch runs: MaskGIT over the DiT denoiser at the serving response
+bucket → NAR levels 1..7 → EnCodec decode at a fixed decode bucket, trimmed
+to ``gen_len`` frames.  Requests are padded to fixed buckets: batch 1 or
+``max_batch`` (pad rows copy row 0 and are discarded), text ``text_len``,
+prompt the smallest 128-multiple covering the cohort's longest prompt.
+Every row's sampling noise derives only from its own seed, so a request's
+audio does not depend on its cohort.
+
+Not ported yet: AR first stages, the ancestral sampler, the HTTP server,
+``Batcher`` and long-form synthesis.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .codec.encodec import HOP, SAMPLE_RATE, Codec
+from .models.diffusion import DiffusionModel
+from .models.nar import NAR, nar_generate
+from .utils.device import resolve_device
+from .utils.rng import RowKeys
+
+
+class Synthesizer:
+    """text + reference wav → wav, for a diffusion first stage + NAR + codec."""
+
+    #: prompt-length buckets are 128-frame multiples
+    PROM_BUCKET = 128
+    #: codec-decode lengths pad up to multiples of this many frames (the
+    #: decoder is causal, so trimming the padded tail is exact)
+    DECODE_BUCKET = 448
+    #: reference-wav encode cache capacity
+    PROM_CACHE_CAP = 64
+
+    def __init__(self, first: DiffusionModel, nar: NAR, codec: Codec, phone_symmap: dict,
+                 *, device="cuda", max_batch: int = 1, maskgit_steps: int = 12,
+                 temperature: float = 1.0, nar_temperature: float = 0.2, bf16: bool = True):
+        from .convert import cast_params_bf16
+
+        self.device = resolve_device(device)
+        if not isinstance(first, DiffusionModel):
+            raise ValueError("only D3PM diffusion first stages are ported yet")
+        self.first = first.to(self.device).eval()
+        self.nar = nar.to(self.device).eval()
+        if bf16:
+            cast_params_bf16(self.first)
+            cast_params_bf16(self.nar)
+        self.codec = codec
+        self.phone_symmap = phone_symmap
+        c = first.config
+        self.text_len, self.prom_len, self.gen_len = c.text_len, c.prom_len, c.gen_len
+        self.maskgit_steps = max(1, min(int(maskgit_steps), c.gen_len))
+        self.resp_bucket = c.serving_resp_bucket
+        self.temperature = temperature
+        self.nar_temperature = nar_temperature
+        self.max_batch = max(1, int(max_batch))
+        self._lock = threading.Lock()
+        self._prom_cache: OrderedDict = OrderedDict()
+
+    @classmethod
+    def from_bundles(cls, ar_ckpt, nar_ckpt, codec_weights, *, device="cuda",
+                     bf16: bool = True, decode: str = "maskgit", **kw) -> "Synthesizer":
+        """Load a diffusion bundle, a NAR bundle and converted codec weights."""
+        from .bundle import load_bundle, load_meta
+        from .codec.encodec import load_codec
+        from . import convert
+
+        if decode != "maskgit":
+            raise NotImplementedError(f"--decode {decode}: not ported yet (only maskgit is)")
+        device = resolve_device(device)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        first = build_model(load_meta(ar_ckpt), dtype)  # rejects what is not ported
+        nar = build_model(load_meta(nar_ckpt), dtype)
+        if not isinstance(first, DiffusionModel) or not isinstance(nar, NAR):
+            raise NotImplementedError(
+                f"{ar_ckpt} + {nar_ckpt}: not ported yet (only a D3PM diffusion "
+                "bundle with a NAR bundle is)")
+        first_p, _, phone_symmap, _ = load_bundle(ar_ckpt)
+        convert.jax_params_to_torch(first_p, first.denoiser)
+        del first_p
+        convert.jax_params_to_torch(load_bundle(nar_ckpt)[0], nar)
+        codec = load_codec(codec_weights, device=device)
+        return cls(first, nar, codec, phone_symmap, device=device, bf16=bf16, **kw)
+
+    # ---------------- request preparation (host) ----------------
+
+    def phone_ids(self, text: str) -> list[int]:
+        from .text import g2p
+        from .text.symmap import phones_to_ids
+
+        ids = phones_to_ids(g2p.encode(text), self.phone_symmap, strict=False)
+        if not ids:
+            raise ValueError("no usable phones in input text")
+        if len(ids) > self.text_len:
+            raise NotImplementedError(
+                f"{len(ids)} phones exceed the text bucket {self.text_len}: "
+                "long-form synthesis is not ported yet")
+        return ids
+
+    def prompt_codes(self, reference) -> np.ndarray:
+        """Reference wav (a path, or a 24 kHz mono float array) → (t, 8)
+        prompt codes; encodes of files are cached by (path, mtime, size)."""
+        from .audio.wavio import read_wav
+
+        if not isinstance(reference, (str, Path)):
+            return self.codec.encode(np.asarray(reference, np.float32), SAMPLE_RATE).T
+        st = Path(reference).stat()
+        key = (str(Path(reference).resolve()), st.st_mtime_ns, st.st_size)
+        hit = self._prom_cache.get(key)
+        if hit is not None:
+            self._prom_cache.move_to_end(key)
+            return hit
+        wav, sr = read_wav(reference)
+        codes = self.codec.encode(wav[:1] if wav.shape[0] == 2 else wav, sr).T
+        self._prom_cache[key] = codes
+        while len(self._prom_cache) > self.PROM_CACHE_CAP:
+            self._prom_cache.popitem(last=False)
+        return codes
+
+    @staticmethod
+    def _pad(arr: np.ndarray, length: int, extra_dims=()):
+        out = np.zeros((1, length, *extra_dims), np.int64)
+        mask = np.zeros((1, length), np.float32)
+        n = min(len(arr), length)
+        out[0, :n] = arr[:n]
+        mask[0, :n] = 1
+        return out, mask
+
+    def prepare(self, text: str, reference) -> dict:
+        """Host-side request prep: g2p + codec encode + bucket padding."""
+        ids = self.phone_ids(text)
+        proms = self.prompt_codes(reference)
+        text_a, text_m = self._pad(np.asarray(ids), self.text_len)
+        prom_a, prom_m = self._pad(proms, self.prom_len, (8,))
+        return dict(text=text_a, text_mask=text_m, proms=prom_a, prom_mask=prom_m,
+                    prom_n=min(len(proms), self.prom_len))
+
+    # ---------------- device batch ----------------
+
+    def prompt_bucket(self, rows) -> int:
+        pn = max(int(r["prom_n"]) for r in rows)
+        return min(self.prom_len, max(1, -(-pn // self.PROM_BUCKET)) * self.PROM_BUCKET)
+
+    @torch.no_grad()
+    def _device_batch(self, prepared: list[dict], seeds: list[int], want_wav: bool = True):
+        """Device stages for a cohort → (per-request (gen_len, 8) codes,
+        per-request float32 wavs or None)."""
+        if not 1 <= len(prepared) <= self.max_batch:
+            raise ValueError(f"need 1..{self.max_batch} requests")
+        if len(seeds) != len(prepared):
+            raise ValueError("need one seed per prepared row")
+        n_req = len(prepared)
+        pad_to = 1 if n_req == 1 else self.max_batch
+        rows = prepared + [prepared[0]] * (pad_to - n_req)
+        row_seeds = list(seeds) + [seeds[0]] * (pad_to - n_req)
+        dev = self.device
+
+        def stack(key):
+            return torch.as_tensor(np.concatenate([r[key] for r in rows]), device=dev)
+
+        pb = self.prompt_bucket(rows)
+        text, tm = stack("text"), stack("text_mask")
+        proms, pm = stack("proms")[:, :pb], stack("prom_mask")[:, :pb].contiguous()
+        keys = RowKeys.from_seeds(row_seeds)
+        with self._lock:
+            toks = self.first.generate_maskgit(
+                text, tm, proms, pm, keys.fold(0), steps=self.maskgit_steps,
+                temperature=self.temperature, resp_bucket=self.resp_bucket,
+            )[:, : self.gen_len]
+            rm = torch.ones((pad_to, self.gen_len), dtype=torch.float32, device=dev)
+            codes = nar_generate(self.nar, text, tm, proms, pm, toks, rm, keys.fold(1),
+                                 sampling_temperature=self.nar_temperature)
+            wav = None
+            if want_wav:
+                d_bucket = max(1, -(-self.gen_len // self.DECODE_BUCKET)) * self.DECODE_BUCKET
+                padded = torch.zeros((pad_to, d_bucket, 8), dtype=torch.long, device=dev)
+                padded[:, : self.gen_len] = codes
+                wav = self.codec.model.decode(padded.transpose(1, 2))[:, : self.gen_len * HOP, 0]
+                wav = wav.cpu().numpy()
+            codes = codes.cpu().numpy()
+        wavs = [wav[i] for i in range(n_req)] if wav is not None else None
+        return [codes[i] for i in range(n_req)], wavs
+
+    def synthesize_codes_batch(self, prepared: list[dict], seeds: list[int]) -> list[np.ndarray]:
+        return self._device_batch(prepared, seeds, want_wav=False)[0]
+
+    def synthesize_batch(self, requests) -> list[tuple[np.ndarray, int]]:
+        """Up to ``max_batch`` (text, reference, seed) requests in one device
+        batch → [(wav float32 (T,), sample_rate)]."""
+        if not 1 <= len(requests) <= self.max_batch:
+            raise ValueError(f"need 1..{self.max_batch} requests")
+        prepared = [self.prepare(t, ref) for t, ref, _ in requests]
+        _, wavs = self._device_batch(prepared, [int(s) for _, _, s in requests])
+        return [(w, self.sample_rate) for w in wavs]
+
+    def synthesize(self, text: str, reference, seed: int = 0):
+        """→ (wav float32 (T,), sample_rate)."""
+        return self.synthesize_batch([(text, reference, seed)])[0]
+
+    @property
+    def sample_rate(self) -> int:
+        return SAMPLE_RATE
+
+
+def build_model(meta: dict, dtype=torch.bfloat16):
+    """Rebuild an exported architecture from ``model.json`` (registry
+    defaults: diffusion d512/8/8, nar d1024/16/12)."""
+    from .models.diffusion import DiffusionConfig
+
+    name = meta["model"].lower()
+    num_tokens = meta.get("num_tokens", 1024)
+    if name.startswith("diffusion-gaussian"):
+        raise NotImplementedError("the Gaussian diffusion family is not ported yet")
+    if name.startswith("diffusion"):
+        kw = {k: meta[k] for k in (
+            "d_model", "n_heads", "n_layers", "timesteps", "resp_len", "text_len",
+            "prom_len", "gen_len", "tower_ffn_dim", "tower_act", "resp_pe") if k in meta}
+        return DiffusionModel(DiffusionConfig(n_classes=num_tokens + 1, **kw), dtype=dtype)
+    if name.startswith("nar"):
+        if "-quarter" in name:
+            dims = dict(d_model=256, n_heads=4, n_layers=12)
+        elif "-half" in name:
+            dims = dict(d_model=512, n_heads=8, n_layers=12)
+        else:
+            dims = dict(d_model=1024, n_heads=16, n_layers=12)
+        dims.update({k: meta[k] for k in ("d_model", "n_heads", "n_layers") if k in meta})
+        return NAR(num_tokens, dtype=dtype, **dims)
+    if name.startswith("ar"):
+        raise NotImplementedError(f"AR bundles ({name!r}) are not ported yet")
+    raise ValueError(f"unknown model family {name!r}")
