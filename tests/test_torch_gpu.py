@@ -1,5 +1,7 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-versions, and a tiny serving batch that must go through the kernels.
+versions (the training kernel forward and backward), a tiny serving batch
+that must go through the kernels, and a tiny train step that must go
+through the training kernel.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -13,6 +15,10 @@ from tts_with_diffusion_model_tpu_torch import smoke
 from tts_with_diffusion_model_tpu_torch.ops.masked_attention import (
     masked_attention,
     masked_attention_plain,
+)
+from tts_with_diffusion_model_tpu_torch.ops.train_flash_attention import (
+    train_flash_attention,
+    train_flash_attention_plain,
 )
 
 
@@ -61,3 +67,62 @@ def test_strided_qkv_split_is_read_in_place(cuda):
 def test_tiny_serving_batch_goes_through_the_kernel(cuda):
     out = smoke.phase_slice(cuda, "tiny", seed=0, repeats=1, ref_seconds=0.5)
     assert out["launches"] == out["expected"] > 0
+
+
+def _grads(fn, q, k, v, km, causal, do):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v, km, causal)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    return o.detach(), dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Tq,Tk,H,Dh,causal", [(4, 192, 192, 8, 64, False),
+                                                 (4, 192, 50, 8, 64, False),
+                                                 (3, 130, 130, 2, 64, True),
+                                                 (3, 100, 131, 2, 32, True),
+                                                 (3, 7, 70, 2, 8, False),
+                                                 (2, 65, 1, 1, 16, False),
+                                                 (4, 70, 7, 2, 64, True),
+                                                 (4, 7, 130, 3, 64, False)])
+def test_train_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, Tq, Tk, H, Dh, causal):
+    rs = np.random.RandomState(Tq * 7 + Tk)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, Dh).astype(np.float32)).to(dtype).to(cuda)
+                   for T in (Tq, Tk, Tk, Tq))
+    km = (rs.rand(B, Tk) > 0.3).astype(np.float32)
+    km[:, 0] = 1
+    km[-1] = 0  # every key masked: finite, uniform, no dS
+    km = torch.from_numpy(km).to(cuda)
+    f0, b0 = train_flash_attention.launches, train_flash_attention.backward_launches
+    got = _grads(train_flash_attention, q, k, v, km, causal, do)
+    torch.cuda.synchronize()
+    assert (train_flash_attention.launches, train_flash_attention.backward_launches) == (f0 + 1, b0 + 1)
+    ref = _grads(train_flash_attention_plain, q, k, v, km, causal, do)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        scale = max(1.0, b.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+def test_masked_attention_refuses_to_be_differentiated(cuda):
+    q = torch.randn(1, 8, 1, 8, device=cuda, requires_grad=True)
+    km = torch.ones(1, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        masked_attention(q, q, q, km)
+
+
+@pytest.mark.gpu
+def test_tiny_train_steps_go_through_the_training_kernel(cuda):
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    overrides = ["model_overrides={d_model: 128, n_heads: 2, n_layers: 2, timesteps: 8, "
+                 "text_len: 50, prom_len: 64, resp_len: 48}", "batch_size=4",
+                 "eval_batch_size=8", "max_num_val=8", "nj=1", "resp_len_buckets=[32]"]
+    out = smoke_train.phase_train(cuda, steps=2, overrides=overrides,
+                                  corpus=(3, 12, (8, 30), (3, 12)))
+    # phase_train checks the launches of every step against these counts
+    assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 + 2 + 2 * 2 * 3, 2 + 2 + 2 * 3)
+    assert out["run_launches"] == 2 * (16 + 10) and out["eval_launches"] > 0

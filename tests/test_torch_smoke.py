@@ -61,3 +61,48 @@ def test_chip_smoke_refuses_outside_the_repository(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_train_step_runs_52_forward_and_28_backward_attentions_at_full_width():
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+    from tts_with_diffusion_model_tpu_torch.config import Config
+    from tts_with_diffusion_model_tpu_torch.train.train import build_model
+
+    cfg = Config.from_cli([f"yaml={smoke_train.TRAIN_YAML}"])
+    sites = smoke_train.train_attention_sites(build_model(cfg), cfg.batch_size,
+                                              min(cfg.resp_len_buckets))
+    # 2 + 2 tower layers, 8 blocks × 3 attentions, the blocks' again under remat
+    assert sum(s.fwd for s in sites) == 4 + 24 + 24 == 52
+    assert sum(s.bwd for s in sites) == 4 + 24 == 28
+    assert {(s.B, s.Tq, s.Tk, s.H, s.Dh) for s in sites} == {
+        (32, 50, 50, 8, 64), (32, 398, 398, 8, 64), (32, 192, 192, 8, 64),
+        (32, 192, 50, 8, 64), (32, 192, 398, 8, 64)}
+    ar = smoke_train.ar_causal_site()
+    assert (ar.B, ar.Tq, ar.H, ar.causal) == (16, 64 + 1 + 512 + 1 + 192, 16, True)
+
+
+def test_train_bound_counts_the_backward_at_two_and_a_half_forwards():
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    s = smoke_train.TrainSite("x", 2, 8, 8, 2, 16, False, 1, 1)
+    qk = pv = 2 * 8 * 8 * 2
+    b = smoke_train.train_bound_ms(s, torch.bfloat16, qk, pv)
+    assert b["bwd_gflop"] == pytest.approx(2.5 * b["fwd_gflop"])
+
+
+def test_train_phases_rehearsal():
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    sites = [smoke_train.TrainSite("self", 4, 9, 9, 2, 16, False, 2, 1),
+             smoke_train.TrainSite("causal", 4, 7, 9, 2, 8, True, 0, 0)]
+    res = smoke_train.phase_train_kernel_check(CPU, sites)
+    assert len(res) == 4 and all(r["max_abs_err"] == 0.0 for r in res)
+    line = smoke_train.train_kernel_summary(res, 2, 1, 0)
+    assert line["launches"] == 3 and line["ms"] is None and line["source"].endswith(".cu")
+    overrides = ["device=cpu", "model_overrides={d_model: 32, n_heads: 2, n_layers: 2, "
+                 "timesteps: 8, text_len: 50, prom_len: 64, resp_len: 48}", "batch_size=4",
+                 "eval_batch_size=8", "max_num_val=8", "nj=1", "resp_len_buckets=[32]"]
+    out = smoke_train.phase_train(CPU, steps=2, overrides=overrides,
+                                  corpus=(3, 12, (8, 30), (3, 12)))
+    assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 + 2 + 2 * 2 * 3, 2 + 2 + 2 * 3)
+    assert len(out["eval"]) == 2 and out["moved"] > 0 and out["run_launches"] == 0

@@ -41,6 +41,19 @@ def perturbed(params, seed: int, scale: float = 0.1) -> dict[str, np.ndarray]:
             for k, v in flatten(params).items()}
 
 
+def seeded_flax_params(module: torch.nn.Module, seed: int, scale: float = 0.1) -> dict:
+    """Flat flax parameters (``params/...`` keys) for ``module``'s JAX
+    counterpart, without a flax init: the port's seeded weights carried over
+    by ``torch_params_to_jax``, plus seeded noise so zero-initialised tables
+    take part."""
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded, torch_params_to_jax
+
+    init_seeded(module, seed)
+    rs = np.random.RandomState(seed + 1)
+    return {f"params/{k}": (v + scale * rs.randn(*v.shape)).astype(np.float32)
+            for k, v in torch_params_to_jax(module).items()}
+
+
 def t(a, dtype=None):
     """numpy → torch (CPU)."""
     x = torch.from_numpy(np.ascontiguousarray(a))

@@ -1,5 +1,5 @@
-"""Weight carry-over from the JAX package's flax parameters, seeded weights,
-and the serving cast to bf16.
+"""Weight carry-over between the JAX package's flax parameters and the port
+(both directions), seeded weights, and the serving cast to bf16.
 
 The port names its submodules after the flax modules, so a ``/``-joined flax
 path becomes a ``state_dict`` name by module path plus one leaf rename,
@@ -92,6 +92,37 @@ def jax_params_to_torch(flat: dict[str, np.ndarray], module: torch.nn.Module) ->
         raise KeyError(f"flax arrays with no port parameter: {sorted(leftover)[:10]}")
     if unset:
         raise KeyError(f"port parameters left unset: {sorted(unset)[:10]}")
+
+
+def _flax_leaf(owner, leaf: str, val: np.ndarray) -> tuple[str, np.ndarray]:
+    """Inverse of ``_leaf_targets`` for the model layers: (flax leaf name,
+    array in the flax layout)."""
+    if isinstance(owner, Dense) and leaf == "weight":
+        return "kernel", val.T
+    if isinstance(owner, LayerNorm) and leaf == "weight":
+        return "scale", val
+    if isinstance(owner, Embed) and leaf == "weight":
+        return "embedding", val
+    if isinstance(owner, (StreamableConv1d, StreamableConvTranspose1d, ResidualLSTM)):
+        raise NotImplementedError("codec parameters are not exported to flax yet")
+    return leaf, val
+
+
+def torch_params_to_jax(module: torch.nn.Module,
+                        tensors: dict[str, torch.Tensor] | None = None) -> dict[str, np.ndarray]:
+    """The inverse of ``jax_params_to_torch``: ``{"a/b/kernel": fp32 array}``
+    with the ``/``-joined flax paths (no leading ``params/``).  ``tensors``
+    maps parameter names to other values to convert in the parameters'
+    place (gradients, an EMA copy); by default the parameters themselves."""
+    out = {}
+    for name, p in module.named_parameters():
+        val = p if tensors is None else tensors[name]
+        prefix, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(prefix) if prefix else module
+        flax_leaf, arr = _flax_leaf(owner, leaf, val.detach().float().cpu().numpy())
+        key = "/".join([*prefix.split("."), flax_leaf]) if prefix else flax_leaf
+        out[key] = np.ascontiguousarray(arr)
+    return out
 
 
 def init_seeded(module: torch.nn.Module, seed: int) -> None:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import masked_attention as attn_ops
+from ..ops import route
 
 
 class Dense(nn.Module):
@@ -104,8 +104,8 @@ def _layer_norm(x, eps: float = 1e-5):
 
 class AdaLN(nn.Module):
     """Level-conditioned norm with the AdaNorm trick ``c·(1 − k·h)·h`` (the
-    ``h`` inside is a constant under autodiff in the JAX package; the port
-    has no backward yet)."""
+    ``h`` inside the bracket is a constant under autodiff, as in the JAX
+    package)."""
 
     def __init__(self, d_model: int, n_levels: int, eps: float = 1e-5,
                  k: float = 0.1, c: float = 2.0):
@@ -123,8 +123,8 @@ class AdaLN(nn.Module):
 
 class Attention(nn.Module):
     """Non-causal multi-head attention over packed positions, batch mode
-    (the NAR's).  Keys are masked by the kernel; padding query rows are
-    zeroed by ``to_out(o) * mask``."""
+    (the NAR's), through ``ops/route.attend``.  Keys are masked by the
+    kernel; padding query rows are zeroed by ``to_out(o) * mask``."""
 
     def __init__(self, d_model: int, n_heads: int, dtype=None):
         super().__init__()
@@ -135,7 +135,7 @@ class Attention(nn.Module):
     def forward(self, x, mask):
         B, T, _ = x.shape
         qkv = self.to_qkv(x).view(B, T, 3, self.n_heads, self.d_model // self.n_heads)
-        o = attn_ops.masked_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask)
+        o = route.attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask)
         o = o.reshape(B, T, self.d_model)
         return self.to_out(o) * mask[..., None].to(x.dtype)
 

@@ -1,8 +1,8 @@
-"""The D3PM diffusion TTS model's serving path (counterpart of
-``models/diffusion.py`` in the JAX package): the config, the serving
-response bucket and MaskGIT decoding.
+"""The D3PM diffusion TTS model (counterpart of ``models/diffusion.py`` in
+the JAX package): the config, the serving response bucket, MaskGIT decoding
+and the training loss.
 
-The training loss and the ancestral sampler are not ported yet.
+The ancestral sampler is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,15 @@ class DiffusionConfig:
     tower_ffn_dim: int | None = None
     tower_act: str = "gelu"
     resp_pe: bool = True
+    train_mode: str = "sampled"  # "sampled" | "all_t"
+    # per-block recompute in the backward (from cfg.gradient_checkpointing)
+    remat: bool = False
+    # only None (whole-block recompute) is ported
+    remat_policy: str | None = None
+    # read for compatibility; on the card every differentiated attention
+    # takes the training kernel and every other one the serving kernel
+    # (ops/route.py), whatever this says
+    attn_impl: str | None = None
 
     @property
     def serving_resp_bucket(self) -> int:
@@ -72,9 +81,54 @@ class DiffusionModel(torch.nn.Module):
             n_classes=config.n_classes, d_model=config.d_model, n_heads=config.n_heads,
             n_layers=config.n_layers, n_prom_levels=config.n_prom_levels,
             timesteps=config.timesteps, dtype=dtype, tower_ffn_dim=config.tower_ffn_dim,
-            tower_act=config.tower_act, resp_pe=config.resp_pe)
+            tower_act=config.tower_act, resp_pe=config.resp_pe, remat=config.remat,
+            remat_policy=config.remat_policy)
         self.d3pm = D3PM.create(timesteps=config.timesteps, num_classes=config.n_classes,
                                 schedule=config.schedule, transition=config.transition)
+
+    def loss(self, batch: dict, generator: torch.Generator | None, max_t: int | None = None,
+             q_noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
+             conds: tuple | None = None):
+        """Masked x_0-prediction cross-entropy → (loss, {"nll": loss}).
+
+        batch: text (B, Tt), text_mask, proms (B, Tp, 8), prom_mask, resp
+        (B, Tr) level-0 ids, resp_mask.  ``max_t`` caps the timestep range.
+        "sampled" mode draws t ~ U{1, …, T−1} per row, "all_t" averages every
+        t in 1..T−1.  The forward corruption's uniform noise is drawn from
+        ``generator`` unless ``q_noise`` injects it: (B, Tr, V) for
+        "sampled", (T−1, B, Tr, V) for "all_t".  ``t`` injects the sampled
+        timesteps and ``conds`` the towers' outputs (text_cond, spkr_cond),
+        so tests can feed both packages the same draws."""
+        c = self.config
+        T = max_t or c.timesteps
+        text, tm = batch["text"], batch["text_mask"]
+        proms, pm = batch["proms"], batch["prom_mask"]
+        resp, rm = batch["resp"], batch["resp_mask"]
+        B, dev = resp.shape[0], resp.device
+        den = self.denoiser
+        text_cond, spkr_cond = conds if conds is not None else den.conds(text, tm, proms, pm)
+
+        def ce_at_t(tt, noise):
+            x_t = self.d3pm.q_sample(resp, tt, uniform_noise=noise, generator=generator)
+            x_t = (x_t * rm).long()
+            logits = den.denoise(x_t, rm, tt, text_cond, tm, spkr_cond, pm)
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, resp[..., None].long())[..., 0]
+            return (nll * rm).sum() / rm.sum().clamp_min(1.0)
+
+        if c.train_mode == "all_t":
+            total = 0.0
+            for i, step in enumerate(range(1, T)):
+                tt = torch.full((B,), step, dtype=torch.long, device=dev)
+                total = total + ce_at_t(tt, None if q_noise is None else q_noise[i])
+            loss = total / (T - 1)
+        elif c.train_mode == "sampled":
+            if t is None:
+                t = torch.randint(1, T, (B,), generator=generator, device=dev)
+            loss = ce_at_t(t.to(dev).long(), q_noise)
+        else:
+            raise ValueError(f"unknown train_mode {c.train_mode!r}")
+        return loss, {"nll": loss}
 
     @torch.no_grad()
     def generate_maskgit(self, text, text_mask, proms, prom_mask, keys, steps: int = 12,

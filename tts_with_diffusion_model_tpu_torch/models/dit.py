@@ -4,9 +4,13 @@ of ``models/dit.py`` in the JAX package).
 Two conditioning towers (post-norm encoder layers + MLP) for the text phones
 and the speaker prompt, N DiT blocks (self-attention, text cross-attention,
 speaker cross-attention, FiLM timestep modulation, MLP) and an fp32 logits
-head.  Every attention goes through ``ops/masked_attention.py``; the
+head.  Every attention goes through ``ops/route.attend`` (the training
+kernel when a gradient is needed, the serving kernel otherwise); the
 cross-attention K/V of the conditioning are computed once per utterance
-(``cond_kv``) and reused by every denoiser step.
+(``cond_kv``) and reused by every denoiser step.  With ``remat`` each
+block's ``apply_step`` is recomputed in the backward instead of keeping its
+activations (``torch.utils.checkpoint``, as ``nn.remat`` in the JAX
+package).
 
 Submodule names equal the flax names (``dit_0``, ``text_tower.layer_0``,
 ...), so a flax parameter path maps onto the ``state_dict`` one to one
@@ -17,8 +21,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops import masked_attention as attn_ops
+from ..ops import route
 from .base import Dense, Embed, LayerNorm, MultiEmbedding, gelu, sinusoidal_embedding
 
 
@@ -62,7 +67,7 @@ class MHA(nn.Module):
 
     def attend(self, q_in, k, v, kv_mask):
         q = self._heads(self.q(q_in))
-        o = attn_ops.masked_attention(q, k, v, kv_mask)
+        o = route.attend(q, k, v, kv_mask)
         return self.out(o.reshape(*o.shape[:-2], self.d_model))
 
     def forward(self, q_in, kv_in, kv_mask):
@@ -142,9 +147,14 @@ class DiTDenoiser(nn.Module):
     def __init__(self, n_classes: int = 1025, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 8, n_prom_levels: int = 8, timesteps: int = 100,
                  dtype=torch.bfloat16, tower_ffn_dim=None, tower_act: str = "gelu",
-                 resp_pe: bool = True):
+                 resp_pe: bool = True, remat: bool = False, remat_policy=None):
         super().__init__()
+        if remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue 1 item 12); "
+                "use null (whole-block recompute)")
         self.d_model, self.n_layers, self.dtype, self.resp_pe = d_model, n_layers, dtype, resp_pe
+        self.remat = remat
         self.text_emb = Embed(n_classes, d_model)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_classes, d_model)
         self.resps_emb = Embed(n_classes, d_model)
@@ -185,12 +195,19 @@ class DiTDenoiser(nn.Module):
             x = x + self._positions(x_t.shape[1], x_t.device)
         x = x.to(dt) * resp_mask[..., None].to(dt)
         t_emb = self.time_emb(t).to(dt)
+        remat = self.remat and torch.is_grad_enabled()
         for blk, (kv_text, kv_spkr) in zip(self.blocks(), kv_list):
-            x = blk.apply_step(x, resp_mask, kv_text, text_mask, kv_spkr, prom_mask, t_emb)
+            args = (x, resp_mask, kv_text, text_mask, kv_spkr, prom_mask, t_emb)
+            x = (checkpoint(blk.apply_step, *args, use_reentrant=False) if remat
+                 else blk.apply_step(*args))
         logits = self.final(x.float())
         return logits * resp_mask[..., None]
 
-    def forward(self, text, text_mask, proms, prom_mask, x_t, resp_mask, t):
-        text_cond, spkr_cond = self.conds(text, text_mask, proms, prom_mask)
+    def denoise(self, x_t, resp_mask, t, text_cond, text_mask, spkr_cond, prom_mask):
+        """One denoiser evaluation from the towers' outputs."""
         kv_list = self.cond_kv(text_cond, spkr_cond)
         return self.denoise_with_kv(x_t, resp_mask, t, kv_list, text_mask, prom_mask)
+
+    def forward(self, text, text_mask, proms, prom_mask, x_t, resp_mask, t):
+        text_cond, spkr_cond = self.conds(text, text_mask, proms, prom_mask)
+        return self.denoise(x_t, resp_mask, t, text_cond, text_mask, spkr_cond, prom_mask)

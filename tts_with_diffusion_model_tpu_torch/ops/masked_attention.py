@@ -82,16 +82,21 @@ def check_inputs(q, k, v, kv_mask):
 
 
 def masked_attention(q, k, v, kv_mask):
-    """Fused key-masked attention.  q: (B, Tq, H, Dh); k, v: (B, Tk, H, Dh)
-    with heads and head width contiguous (time and batch may be strided, as
-    in a split of a fused qkv projection); kv_mask: (B, Tk) float32.
-    Returns a new contiguous (B, Tq, H, Dh) tensor in q's dtype."""
+    """Fused key-masked attention, forward only.  q: (B, Tq, H, Dh); k, v:
+    (B, Tk, H, Dh) with heads and head width contiguous (time and batch may
+    be strided, as in a split of a fused qkv projection); kv_mask: (B, Tk)
+    float32.  Returns a new contiguous (B, Tq, H, Dh) tensor in q's dtype.
+    On a CUDA tensor with grad enabled and an input that requires grad it
+    raises rather than detach."""
     check_inputs(q, k, v, kv_mask)
     if q.device.type == "cpu":
         masked_attention.plain_calls += 1
         return masked_attention_plain(q, k, v, kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"no masked-attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("masked_attention is forward-only: differentiated attention "
+                           "goes through ops/train_flash_attention.py (ops/route.attend)")
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)

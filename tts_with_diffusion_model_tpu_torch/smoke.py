@@ -455,19 +455,22 @@ def phase_slice(device, size: str = "full", zoo: bool = False, seed: int = 0,
             "steps": synth.maskgit_steps, "synth": synth, "requests": requests}
 
 
-def profile_batch(synth, requests, top: int = 8) -> dict:
-    """One ``synthesize_batch`` under ``torch.profiler`` (after the run's
-    warm batches): wall ms, summed device kernel ms, the device's idle share
-    of the wall time, and the kernels that took the most device time."""
+def profile_call(fn, what: str, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (after the run's warm
+    calls): wall ms, summed device kernel ms, the device's idle share of the
+    wall time, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        synth.synthesize_batch(requests)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side ranges of record_function annotations (Optimizer.step)
+    # span kernels counted on their own, so they are left out
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -475,11 +478,16 @@ def profile_batch(synth, requests, top: int = 8) -> dict:
         acc[0] += e.device_time / 1e3
         acc[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    out = {"wall_ms": wall_ms, "device_kernel_ms": busy_ms, "kernels": len(kernels),
-           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+    out = {"what": what, "wall_ms": wall_ms, "device_kernel_ms": busy_ms,
+           "kernels": len(kernels), "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "top": [{"name": n[:80], "ms": v[0], "calls": v[1]} for n, v in ranked]}
     log("profile: " + json.dumps(out))
     return out
+
+
+def profile_batch(synth, requests) -> dict:
+    """One ``synthesize_batch`` under the profiler."""
+    return profile_call(lambda: synth.synthesize_batch(requests), "serving batch")
 
 
 @torch.no_grad()
