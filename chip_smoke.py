@@ -6,9 +6,12 @@ Drives the port's two main paths at full width: D3PM MaskGIT serving
 (DiT → NAR → EnCodec) through ``Synthesizer``, and D3PM training through the
 train CLI's ``main`` on ``config/gen4c/diffusion.yml`` (8 steps over a
 seeded synthetic corpus, checkpoint and val-loss eval at the last).  Builds
-every CUDA kernel from the sources in this checkout with ``nvcc``, holds
-each kernel against its plain PyTorch version at its main path's shapes,
-and checks that each main path launched its kernels.  Weights are drawn from
+every CUDA kernel from the sources in this checkout with ``nvcc`` and counts
+the wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds
+each kernel against its plain PyTorch version at its main path's shapes
+(printing each site's kernel/SDPA and kernel/bound ratios), checks that the
+training backward is deterministic, and checks that each main path
+launched its kernels.  Weights are drawn from
 ``--seed`` unless ``--zoo`` loads the committed serving bundles.  Prints each
 phase's seconds as it goes; the last lines are the kernels' JSON, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -68,6 +71,8 @@ def main() -> int:
             build_model(train_cfg), train_cfg.batch_size, min(train_cfg.resp_len_buckets))
         train_results = smoke_train.phase_train_kernel_check(
             device, [*train_sites, smoke_train.ar_causal_site()], seed=args.seed)
+        smoke_train.check_backward_determinism(
+            next(s for s in train_sites if s.name == "DiT self"), device, seed=args.seed)
     with smoke.phase("slice"):
         sl = smoke.phase_slice(device, "full", zoo=args.zoo, seed=args.seed,
                                repeats=args.repeats)

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-versions (the training kernel forward and backward), a tiny serving batch
-that must go through the kernels, and a tiny train step that must go
-through the training kernel.
+versions (the training kernel forward and backward) at the main paths'
+shapes and at ragged edges, the training backward's determinism, a tiny
+serving batch that must go through the kernels, and a tiny train step that
+must go through the training kernel.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -36,7 +37,8 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,Tq,Tk,H,Dh", [(4, 384, 384, 8, 64), (4, 384, 50, 8, 64),
                                           (4, 384, 398, 8, 64), (2, 800, 800, 16, 64),
-                                          (3, 7, 70, 2, 8), (1, 130, 1, 1, 16)])
+                                          (3, 7, 70, 2, 8), (1, 130, 1, 1, 16),
+                                          (3, 50, 1, 2, 64), (2, 100, 70, 3, 64)])
 def test_masked_attention_kernel_matches_plain(cuda, dtype, tol, B, Tq, Tk, H, Dh):
     rs = np.random.RandomState(Tq + Tk)
     q, k, v = (torch.from_numpy(rs.randn(B, T, H, Dh).astype(np.float32)).to(dtype).to(cuda)
@@ -54,6 +56,55 @@ def test_masked_attention_kernel_matches_plain(cuda, dtype, tol, B, Tq, Tk, H, D
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
+def _serving_sites_b1():
+    from tts_with_diffusion_model_tpu_torch.models.diffusion import DiffusionConfig
+
+    nar = {"d_model": 1024, "n_heads": 16, "n_layers": 12}
+    return [(s.name, s.Tq, s.Tk, s.H, s.Dh)
+            for s in smoke.attention_sites(DiffusionConfig(), nar, steps=12, prompt_bucket=256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("site", _serving_sites_b1(), ids=lambda s: s[0].replace(" ", "_"))
+def test_masked_attention_serving_sites_at_batch_one(cuda, dtype, tol, site):
+    """One request: each serving site at B = 1 with a ragged mask with holes,
+    then with every key masked (finite, uniform)."""
+    _, Tq, Tk, H, Dh = site
+    rs = np.random.RandomState(Tq * 3 + Tk)
+    q, k, v = (torch.from_numpy(rs.randn(1, T, H, Dh).astype(np.float32)).to(dtype).to(cuda)
+               for T in (Tq, Tk, Tk))
+    ragged = (rs.rand(1, Tk) > 0.3).astype(np.float32)
+    ragged[:, 0] = 1
+    ragged[:, Tk - Tk // 5:] = 0
+    for km in (ragged, np.zeros((1, Tk), np.float32)):
+        km = torch.from_numpy(km).to(cuda)
+        got = masked_attention(q, k, v, km)
+        ref = masked_attention_plain(q, k, v, km)
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_nar_packed_self_attention_reads_the_fused_qkv_in_place(cuda, dtype, tol):
+    """The NAR's 658-slot packed self-attention at H = 16: q, k, v are
+    strided views of one fused (B, T, 3, H, Dh) projection."""
+    rs = np.random.RandomState(658)
+    qkv = torch.from_numpy(rs.randn(4, 658, 3, 16, 64).astype(np.float32)).to(dtype).to(cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride(1) == 3 * 16 * 64 and not q.is_contiguous()
+    km = (rs.rand(4, 658) > 0.2).astype(np.float32)
+    km[:, 0] = 1
+    km[1, 400:] = 0
+    km[-1] = 0  # every key masked: finite, uniform
+    km = torch.from_numpy(km).to(cuda)
+    got = masked_attention(q, k, v, km)
+    ref = masked_attention_plain(q, k, v, km)
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.gpu
 def test_strided_qkv_split_is_read_in_place(cuda):
     qkv = torch.randn(2, 33, 3, 4, 16, device=cuda)
@@ -61,6 +112,39 @@ def test_strided_qkv_split_is_read_in_place(cuda):
     got = masked_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], km)
     ref = masked_attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], km)
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_first_call_on_a_thread_can_be_graph_captured(cuda):
+    # the per-thread context set-up before a tensor map is encoded must be
+    # legal inside a (global-mode) CUDA-graph capture
+    import threading
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(4, 384, 16, 64, device=cuda, dtype=torch.bfloat16, generator=g)
+               for _ in range(3))
+    km = torch.ones(4, 384, device=cuda)
+    km[:, 300:] = 0
+    ref = masked_attention(q, k, v, km)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out["o"] = masked_attention(q, k, v, km)
+            graph.replay()
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    assert torch.equal(out["o"], ref)
 
 
 @pytest.mark.gpu
@@ -85,7 +169,11 @@ def _grads(fn, q, k, v, km, causal, do):
                                                  (3, 7, 70, 2, 8, False),
                                                  (2, 65, 1, 1, 16, False),
                                                  (4, 70, 7, 2, 64, True),
-                                                 (4, 7, 130, 3, 64, False)])
+                                                 (4, 7, 130, 3, 64, False),
+                                                 (2, 770, 770, 16, 64, True),
+                                                 (3, 50, 1, 2, 64, False),
+                                                 (3, 50, 1, 2, 64, True),
+                                                 (2, 100, 70, 3, 64, True)])
 def test_train_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, Tq, Tk, H, Dh, causal):
     rs = np.random.RandomState(Tq * 7 + Tk)
     q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, Dh).astype(np.float32)).to(dtype).to(cuda)
@@ -104,6 +192,29 @@ def test_train_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, Tq, Tk,
         scale = max(1.0, b.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,Tk,H,causal", [(32, 192, 192, 8, False), (32, 192, 398, 8, False),
+                                             (2, 770, 770, 16, True)])
+def test_train_flash_attention_backward_is_deterministic(cuda, B, Tq, Tk, H, causal):
+    """No atomics: two backward calls on the same inputs give bit-identical
+    dq, dk and dv."""
+    from tts_with_diffusion_model_tpu_torch.ops import train_flash_attention as ops
+
+    rs = np.random.RandomState(Tq + Tk)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, 64).astype(np.float32)).bfloat16().to(cuda)
+                   for T in (Tq, Tk, Tk, Tq))
+    km = (rs.rand(B, Tk) > 0.3).astype(np.float32)
+    km[:, 0] = 1
+    km[-1] = 0
+    km = torch.from_numpy(km).to(cuda)
+    o, lse = ops._forward(q, k, v, km, causal)
+    first = ops._backward(q, k, v, km, o, lse, do, causal)
+    second = ops._backward(q, k, v, km, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -18,39 +18,63 @@
 // sums; p is rounded to v's dtype before p·v, as the TPU kernel does.
 //
 // The work is split as FlashAttention-2 splits it:
-//  * forward: one block per (b, h, query tile), online softmax; writes O and
-//    the row log-sum-exp L = m + log(l) (fp32, (B, H, Tq)).  On an
-//    all-masked row m = NEG_INF and L == NEG_INF exactly (log l is below
-//    half an ulp of NEG_INF), which is how the backward recognises it.
+//  * forward: online softmax per query tile; writes O and the row
+//    log-sum-exp L = m + log(l) (fp32, (B, H, Tq)).  On an all-masked row
+//    L == NEG_INF exactly, which is how the backward recognises it.
 //  * backward: D_i = dO_i·O_i (one pass); dK/dV per key tile, looping over
-//    every query tile and recomputing P from L; dQ per query tile, looping
-//    over every key tile.  No atomics: dQ, dK and dV are each written by
-//    one thread, so the result is deterministic.  dS is formed in fp32.
+//    the query tiles and recomputing P from L; dQ per query tile, looping
+//    over the key tiles.  No atomics: dQ, dK and dV each have one writer
+//    and a fixed order of sums, so the result is deterministic (the JAX
+//    reference is, and the tests compare against it).  dS is formed in fp32.
 //
 // What bounds it on the card.  At the D3PM training sites (B=32, H=8,
 // Dh=64, Tq, Tk <= 398) one forward moves at most ~52 MB in bf16 (q, k, v,
 // o) and does up to ~10 GFLOP, so the bytes (16 µs at 3.35 TB/s) and the
 // tensor cores (10 µs at 989 TF/s) are close; the backward moves twice the
-// bytes and does 2.5x the operations.  The design keeps the (Tq, Tk) scores
-// and probabilities out of device memory in both passes (the only scratch
-// is L and D, 8 bytes per query row).
+// bytes and does 2.5x the operations.  The (Tq, Tk) scores and
+// probabilities never reach device memory (the only scratch is L and D, 8
+// bytes per query row).
 //
-// Kernels:
-//  * bf16 with Dh = 64 and 16-byte aligned rows (every call of the D3PM
-//    training path): forward, dK/dV and dQ on the tensor cores, mma.sync
-//    m16n8k16 with the fragment layout of csrc/masked_attention.cu: four
-//    warps of 16 rows, the block's own rows as A fragments in registers,
-//    the other side's 64-row tiles in padded shared memory, score fragments
-//    turned into the next product's A operand in registers (P for p·v and
-//    dV, dS for dK and dQ) with no shared round trip.
-//  * everything else (fp32, other head widths, unaligned views): one thread
-//    per query row (forward, dQ) or per key (dK/dV) on the CUDA cores in
-//    fp32, the other side's tiles staged in shared memory.
-// wgmma/TMA tiles and a pipelined K/V ring are later work.
+// The bf16, Dh = 64, 16-byte aligned path (every call of the training
+// path) is built from csrc/hopper_attention.cuh; against what held the
+// mma.sync version back:
+//  1. loads: each block has a producer warp that keeps a ring of 64-row
+//     tiles filled by TMA (3 stages in the forward, 2 in the backward),
+//     full/empty mbarriers in between, so the next tile's load runs under
+//     the current tile's products;
+//  2. transposed operands: the tiles land in shared memory with the
+//     128-byte swizzle and wgmma reads V, dO, Q and K transposed through
+//     MN-major descriptors -- no scalar 16-bit loads, no packing by hand;
+//  3. products: every product is a warpgroup wgmma m64n64k16 (S, dP, Sᵀ,
+//     dPᵀ from shared memory; P·V, Pᵀ·dO, dSᵀ·Q, dS·K with P or dS in
+//     registers, straight from the score accumulators); the forward issues
+//     S of tile k with P·V of tile k-1 and runs the softmax of tile k under
+//     that P·V (one consumer warpgroup per block, three or four blocks per
+//     SM, so the products of one block also run under another's softmax);
+//  4. exponents: scores are pre-scaled by Dh^-0.5·log2 e in one multiply and
+//     exponentiated with exp2f; the backward's per-element work is one
+//     exp2f and a select, with no branch: the producer turns L into
+//     log2 units (+inf past Tq and on all-masked rows, so exp2 gives 0
+//     there) plus a per-row uniform weight (1/Tk on all-masked rows), and
+//     the key flags are loaded once per block (dK/dV) or per tile (dQ);
+//  5. causality: the forward and dQ stop at the last key tile any row of
+//     the block can see, dK/dV starts at the first query tile that can see
+//     the block's keys, and only tiles crossing the diagonal mask element
+//     by element.  Rows with no visible valid key (below the first valid
+//     key) average all Tk values, so their tiles are kept;
+//  6. D pass: 8 threads per row with 16-byte loads, 4 rows per warp.
+// Other inputs (fp32, other head widths, unaligned views) take SIMT kernels:
+// one thread per query row (forward, dQ) or per key (dK/dV) on the CUDA
+// cores in fp32.
+// Still left: warp-specialised ping-pong between two consumer warpgroups
+// (one's softmax under the other's products) and a persistent schedule
+// over the (tile, head, batch) grid.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC (ops/_build.py).  Plain C entry points at the end,
 // bound with ctypes (ops/train_flash_attention.py).
+
+#include "hopper_attention.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,191 +208,6 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < kDhMax; ++d)
     if (d < Dh) store(op + d, acc[d] * inv);
   lse[((long long)b * H + h) * Tq + row] = m + logf(l);
-}
-
-// ---------------------------------------------------------------------------
-// Forward, tensor cores: bf16, Dh = 64.  Fragment layout as in
-// csrc/masked_attention.cu (mma.sync m16n8k16, g = lane / 4, t = lane % 4).
-
-constexpr int kTcDh = 64;
-constexpr int kTcWarps = 4;
-constexpr int kTcRows = 16 * kTcWarps;
-constexpr int kTcKeys = 64;
-constexpr int kTcStride = kTcDh + 8;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(32 * kTcWarps)
-fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const float* __restrict__ kv_mask, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, Strides st, int Tq, int Tk, int H,
-              int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTcKeys][kTcStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTcKeys][kTcStride];
-  __shared__ float flag[kTcKeys];
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = blockIdx.x * kTcRows + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-
-  uint32_t qa[4][4];
-  const __nv_bfloat16* qb = q + (long long)b * st.q_sb + h * kTcDh;
-  const __nv_bfloat16* q_lo = qb + (long long)r_lo * st.q_st;
-  const __nv_bfloat16* q_hi = qb + (long long)r_hi * st.q_st;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r_lo < Tq ? ld32(q_lo + c) : 0u;
-    qa[kk][1] = r_hi < Tq ? ld32(q_hi + c) : 0u;
-    qa[kk][2] = r_lo < Tq ? ld32(q_lo + c + 8) : 0u;
-    qa[kk][3] = r_hi < Tq ? ld32(q_hi + c + 8) : 0u;
-  }
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  float l_lo = 0.f, l_hi = 0.f;
-
-  const __nv_bfloat16* kb = k + (long long)b * st.k_sb + h * kTcDh;
-  const __nv_bfloat16* vb = v + (long long)b * st.v_sb + h * kTcDh;
-  const float* mb = kv_mask + (long long)b * Tk;
-
-  for (int j0 = 0; j0 < Tk; j0 += kTcKeys) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTcKeys * kTcDh / 8;
-         idx += 32 * kTcWarps) {
-      const int j = idx / (kTcDh / 8), c = (idx % (kTcDh / 8)) * 8;
-      uint4 k4 = make_uint4(0, 0, 0, 0), v4 = make_uint4(0, 0, 0, 0);
-      if (j0 + j < Tk) {
-        k4 = *reinterpret_cast<const uint4*>(kb + (long long)(j0 + j) * st.k_st + c);
-        v4 = *reinterpret_cast<const uint4*>(vb + (long long)(j0 + j) * st.v_st + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][c]) = k4;
-      *reinterpret_cast<uint4*>(&vs[j][c]) = v4;
-    }
-    if (threadIdx.x < kTcKeys) flag[threadIdx.x] = key_flag(mb, j0 + threadIdx.x, Tk);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kr = &ks[n * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j0 + n * 8 + 2 * t + e;
-        const float f = flag[n * 8 + 2 * t + e];
-        const float off = f < 0.f ? -INFINITY : kNegInf;
-        const bool ok = f > 0.f;
-        s[n][e] = (ok && (!causal || key <= r_lo)) ? s[n][e] * scale : off;
-        s[n][2 + e] = (ok && (!causal || key <= r_hi)) ? s[n][2 + e] * scale : off;
-        mx_lo = fmaxf(mx_lo, s[n][e]);
-        mx_hi = fmaxf(mx_hi, s[n][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // every tile holds a key < Tk, so the new maxima are finite
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float c_lo = expf(m_lo - mn_lo), c_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= c_lo;
-    l_hi *= c_hi;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= c_lo;
-      acc[n][1] *= c_lo;
-      acc[n][2] *= c_hi;
-      acc[n][3] *= c_hi;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] = expf(s[n][e] - mn_lo);
-        s[n][2 + e] = expf(s[n][2 + e] - mn_hi);
-        l_lo += s[n][e];
-        l_hi += s[n][2 + e];
-      }
-    }
-
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
-      pa[1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
-      pa[2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
-      pa[3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
-      const int key = c * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = n * 8 + g;
-        mma_bf16(acc[n], pa, pack_bf16(vs[key][d], vs[key + 1][d]),
-                 pack_bf16(vs[key + 8][d], vs[key + 9][d]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float i_lo = 1.f / l_lo, i_hi = 1.f / l_hi;
-  __nv_bfloat16* ob = o + (long long)b * st.o_sb + h * kTcDh;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r_lo < Tq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r_lo * st.o_st + col) =
-          pack_bf16(acc[n][0] * i_lo, acc[n][1] * i_lo);
-    if (r_hi < Tq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r_hi * st.o_st + col) =
-          pack_bf16(acc[n][2] * i_hi, acc[n][3] * i_hi);
-  }
-  if (t == 0) {
-    float* lb = lse + ((long long)b * H + h) * Tq;
-    if (r_lo < Tq) lb[r_lo] = m_lo + logf(l_lo);
-    if (r_hi < Tq) lb[r_hi] = m_hi + logf(l_hi);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -585,283 +424,392 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (d < Dh) store(out + d, acc[d] * scale);
 }
 
+
 // ---------------------------------------------------------------------------
-// Backward, tensor cores: bf16, Dh = 64.  Four warps of 16 rows each; P and
-// dS are formed in fp32 from the score fragments and rounded to bf16 only as
-// the A operand of the next product (P for dV, dS for dK / dQ).
+// Backward on the Hopper path: bf16, Dh = 64 (csrc/hopper_attention.cuh).
+// P_ij = exp2(s_ij·Dh^-0.5·log2 e − L_i·log2 e) at visible entries, 0
+// elsewhere, plus 1/Tk on a row whose L is NEG_INF (all keys masked, no dS);
+// dV_j = Σ_i round(P_ij)·dO_i;  dS_ij = P_ij·(dO_i·v_j − D_i) at visible
+// entries;  dQ_i = scale·Σ_j dS_ij·k_j;  dK_j = scale·Σ_i dS_ij·q_i.
 
-// dK, dV: a block owns 64 keys (16 per warp, K and V as A fragments in
-// registers) and walks the query tiles, staged 64 rows at a time.
-__global__ void __launch_bounds__(32 * kTcWarps)
-bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const float* __restrict__ kv_mask,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                   Strides st, int do_sb, int do_st, int Tq, int Tk, int H,
-                   int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTcRows][kTcStride];
-  __shared__ __align__(16) __nv_bfloat16 gs[kTcRows][kTcStride];
-  __shared__ float ls[kTcRows], ds_[kTcRows];
+using hopper::kStages;
+using hopper::kTileBytes;
+
+// D_i = Σ_d dO_id·O_id: 8 threads per (b, i, h) row, one 16-byte load of o
+// and of dO each, the 8 partial sums reduced by shuffles in a fixed order.
+__global__ void __launch_bounds__(256)
+bwd_delta_rows_kernel(const hopper::bf16* __restrict__ o,
+                      const hopper::bf16* __restrict__ dout,
+                      float* __restrict__ delta, long long o_sb, long long o_st,
+                      long long do_sb, long long do_st, int B, int Tq, int H) {
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
+  const int part = threadIdx.x & 7;
+  const bool live = r < (long long)B * Tq * H;
+  const int h = live ? (int)(r % H) : 0;
+  const int i = live ? (int)((r / H) % Tq) : 0;
+  const int b = live ? (int)(r / ((long long)H * Tq)) : 0;
+  float acc = 0.f;
+  if (live) {
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * o_sb + i * o_st + h * hopper::kDh + part * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        dout + b * do_sb + i * do_st + h * hopper::kDh + part * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(c2[e]);
+      acc += x.x * y.x + x.y * y.y;
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && part == 0) delta[((long long)b * H + h) * Tq + i] = acc;
+}
+
+struct BwdParams {
+  const float* mask;   // (B, Tk)
+  const float* lse;    // (B, H, Tq), natural log
+  const float* delta;  // (B, H, Tq)
+  hopper::bf16 *dq, *dk, *dv;  // dense (B, T, H, 64)
+  int Tq, Tk, H, causal;
+  float scale, scale_log2, inv_tk;
+};
+
+// Per query row, what the dK/dV producer stages beside Q and dO: L in log2
+// units (+inf past Tq and on an all-masked row, so exp2 gives 0), D, and
+// the uniform weight (1/Tk on an all-masked row, else 0).
+__device__ __forceinline__ void row_terms(const BwdParams& p, long long row0, int i,
+                                          float* l2, float* dd, float* pu) {
+  float L2 = INFINITY, D = 0.f, U = 0.f;
+  if (i < p.Tq) {
+    const float L = p.lse[row0 + i];
+    D = p.delta[row0 + i];
+    if (L == hopper::kNegInf)
+      U = p.inv_tk;
+    else
+      L2 = L * hopper::kLog2e;
+  }
+  *l2 = L2;
+  *dd = D;
+  *pu = U;
+}
+
+constexpr int kDkdvSmemBytes = 1024 + (2 + 2 * kStages) * kTileBytes +
+                               3 * kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+
+// dK, dV: one block per (64 keys, head, batch), one consumer warpgroup
+// (warps 0..3) and one producer warp (warp 4); K and V tiles resident, Q, dO and the row terms stream through the
+// ring.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS); Pᵀ and dSᵀ are formed in the
+// accumulators, which are already in A-operand layout; dV += Pᵀ·dO and
+// dK += dSᵀ·Q (RS, dO and Q read transposed).
+// At least two blocks per SM (four accumulators of 32 floats a thread).
+__global__ void __launch_bounds__(160, 2)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do, const BwdParams p) {
+  using namespace hopper;
+  constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
+  constexpr float kNegInf = hopper::kNegInf;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* ks = base;
+  uint8_t* vs = ks + kTileBytes;
+  uint8_t* qs = vs + kTileBytes;
+  uint8_t* gs = qs + kStages * kTileBytes;
+  float* l2s = reinterpret_cast<float*>(gs + kStages * kTileBytes);
+  float* dds = l2s + kStages * kRows;
+  float* pus = dds + kStages * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(pus + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
 
   const int b = blockIdx.z, h = blockIdx.y;
+  const int j0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key_lo = blockIdx.x * kTcRows + warp * 16 + g;
-  const int key_hi = key_lo + 8;
-  const float* mb = kv_mask + (long long)b * Tk;
-  const bool ok_lo = key_lo < Tk && mb[key_lo] > 0.f;
-  const bool ok_hi = key_hi < Tk && mb[key_hi] > 0.f;
-  const float inv_tk = 1.f / (float)Tk;
+  const float* mask_b = p.mask + (long long)b * p.Tk;
+  const long long row0 = ((long long)b * p.H + h) * p.Tq;
 
-  uint32_t ka[4][4], va[4][4];
-  {
-    const __nv_bfloat16* kb = k + (long long)b * st.k_sb + h * kTcDh;
-    const __nv_bfloat16* vb = v + (long long)b * st.v_sb + h * kTcDh;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      ka[kk][0] = key_lo < Tk ? ld32(kb + (long long)key_lo * st.k_st + c) : 0u;
-      ka[kk][1] = key_hi < Tk ? ld32(kb + (long long)key_hi * st.k_st + c) : 0u;
-      ka[kk][2] = key_lo < Tk ? ld32(kb + (long long)key_lo * st.k_st + c + 8) : 0u;
-      ka[kk][3] = key_hi < Tk ? ld32(kb + (long long)key_hi * st.k_st + c + 8) : 0u;
-      va[kk][0] = key_lo < Tk ? ld32(vb + (long long)key_lo * st.v_st + c) : 0u;
-      va[kk][1] = key_hi < Tk ? ld32(vb + (long long)key_hi * st.v_st + c) : 0u;
-      va[kk][2] = key_lo < Tk ? ld32(vb + (long long)key_lo * st.v_st + c + 8) : 0u;
-      va[kk][3] = key_hi < Tk ? ld32(vb + (long long)key_hi * st.v_st + c + 8) : 0u;
-    }
+  // Query tiles: all, or under causality those from the first one that
+  // can see this block's keys, after the tiles holding rows with no
+  // visible valid key (their uniform rows weigh every key).
+  const int n_qt = (p.Tq + kRows - 1) / kRows;
+  int lead = 0, first = 0;
+  if (p.causal) {
+    first = min(j0 / kRows, n_qt);
+    lead = min((first_valid_key(mask_b, p.Tk, lane) + kRows - 1) / kRows, first);
   }
-  float dka[8][4], dva[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const int count = lead + n_qt - first;
 
-  const __nv_bfloat16* qb = q + (long long)b * st.q_sb + h * kTcDh;
-  const __nv_bfloat16* gb = dout + (long long)b * do_sb + h * kTcDh;
-  const float* lb = lse + ((long long)b * H + h) * Tq;
-  const float* db = delta + ((long long)b * H + h) * Tq;
-  for (int i0 = 0; i0 < Tq; i0 += kTcRows) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTcRows * kTcDh / 8; idx += 32 * kTcWarps) {
-      const int r = idx / (kTcDh / 8), c = (idx % (kTcDh / 8)) * 8;
-      uint4 q4 = make_uint4(0, 0, 0, 0), g4 = make_uint4(0, 0, 0, 0);
-      if (i0 + r < Tq) {
-        q4 = *reinterpret_cast<const uint4*>(qb + (long long)(i0 + r) * st.q_st + c);
-        g4 = *reinterpret_cast<const uint4*>(gb + (long long)(i0 + r) * do_st + c);
-      }
-      *reinterpret_cast<uint4*>(&qs[r][c]) = q4;
-      *reinterpret_cast<uint4*>(&gs[r][c]) = g4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4);
     }
-    if (threadIdx.x < kTcRows) {
-      const int i = i0 + threadIdx.x;
-      ls[threadIdx.x] = i < Tq ? lb[i] : 0.f;
-      ds_[threadIdx.x] = i < Tq ? db[i] : 0.f;
-    }
-    __syncthreads();
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
+  if (warp == 4) {  // ---- producer warp
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * kTileBytes);
+      tma_load(ks, &map_k, kvbar, h, j0, b);
+      tma_load(vs, &map_v, kvbar, h, j0, b);
+    }
+    for (int idx = 0; idx < count; ++idx) {
+      const int s = idx % kStages;
+      const int i0 = (idx < lead ? idx : first + idx - lead) * kRows;
+      mbar_wait(&empty[s], ((idx / kStages) & 1) ^ 1);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {  // 16 queries at a time
-      float sp[2][4], dp[2][4];  // Sᵀ then Pᵀ; dPᵀ then dSᵀ
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
-        const int n = 2 * c + nn;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sp[nn][e] = dp[nn][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const __nv_bfloat16* qr = &qs[n * 8 + g][kk * 16 + 2 * t];
-          const __nv_bfloat16* gr = &gs[n * 8 + g][kk * 16 + 2 * t];
-          mma_bf16(sp[nn], ka[kk], ld32(qr), ld32(qr + 8));
-          mma_bf16(dp[nn], va[kk], ld32(gr), ld32(gr + 8));
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = n * 8 + 2 * t + (e & 1);  // query in the tile
-          const int i = i0 + r;
-          const bool hi = e >= 2;
-          const int key = hi ? key_hi : key_lo;
-          const bool kok = hi ? ok_hi : ok_lo;
-          const float Li = ls[r];
-          float p = 0.f, dsv = 0.f;
-          if (i < Tq && key < Tk) {
-            if (Li == kNegInf) {
-              p = inv_tk;  // all keys masked: uniform P, no dS
-            } else if (kok && (!causal || key <= i)) {
-              p = expf(sp[nn][e] * scale - Li);
-              dsv = p * (dp[nn][e] - ds_[r]);
-            }
-          }
-          sp[nn][e] = p;
-          dp[nn][e] = dsv;
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int c = lane + 32 * e;
+        row_terms(p, row0, i0 + c, &l2s[s * kRows + c], &dds[s * kRows + c],
+                  &pus[s * kRows + c]);
       }
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(sp[0][0], sp[0][1]);
-      pa[1] = pack_bf16(sp[0][2], sp[0][3]);
-      pa[2] = pack_bf16(sp[1][0], sp[1][1]);
-      pa[3] = pack_bf16(sp[1][2], sp[1][3]);
-      sa[0] = pack_bf16(dp[0][0], dp[0][1]);
-      sa[1] = pack_bf16(dp[0][2], dp[0][3]);
-      sa[2] = pack_bf16(dp[1][0], dp[1][1]);
-      sa[3] = pack_bf16(dp[1][2], dp[1][3]);
-      const int r = c * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = n * 8 + g;
-        mma_bf16(dva[n], pa, pack_bf16(gs[r][d], gs[r + 1][d]),
-                 pack_bf16(gs[r + 8][d], gs[r + 9][d]));
-        mma_bf16(dka[n], sa, pack_bf16(qs[r][d], qs[r + 1][d]),
-                 pack_bf16(qs[r + 8][d], qs[r + 9][d]));
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * kTileBytes);
+        tma_load(qs + s * kTileBytes, &map_q, &full[s], h, i0, b);
+        tma_load(gs + s * kTileBytes, &map_do, &full[s], h, i0, b);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
+    return;
+  }
+  // ---- consumer warpgroup: its keys are the accumulator rows
+  const int w = warp, g = lane >> 2, t = lane & 3;
+  const int kr0 = j0 + 16 * w + g, kr1 = kr0 + 8;
+  // key flag: 0 valid, NEG_INF masked, -inf past Tk; in: the key exists
+  const float f0 = kr0 < p.Tk ? (mask_b[kr0] > 0.f ? 0.f : kNegInf) : -INFINITY;
+  const float f1 = kr1 < p.Tk ? (mask_b[kr1] > 0.f ? 0.f : kNegInf) : -INFINITY;
+  const float in0 = kr0 < p.Tk ? 1.f : 0.f, in1 = kr1 < p.Tk ? 1.f : 0.f;
+  const uint8_t* k_tile = ks;
+  const uint8_t* v_tile = vs;
+  const float sl2 = p.scale_log2;
+
+  float dk[32], dv[32], st[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int idx = 0; idx < count; ++idx) {
+    const int s = idx % kStages;
+    const int i0 = (idx < lead ? idx : first + idx - lead) * kRows;
+    mbar_wait(&full[s], (idx / kStages) & 1);
+    const uint8_t* q_tile = qs + s * kTileBytes;
+    const uint8_t* g_tile = gs + s * kTileBytes;
+    wgmma_fence();
+    gemm_abt(st, k_tile, q_tile);  // Sᵀ
+    gemm_abt(dp, v_tile, g_tile);  // dPᵀ
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dp);
+
+    const bool diag = p.causal && j0 + kRows - 1 > i0;
+    const float* l2r = l2s + s * kRows;
+    const float* ddr = dds + s * kRows;
+    const float* pur = pus + s * kRows;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(l2r + col);
+      const float2 dd = *reinterpret_cast<const float2*>(ddr + col);
+      const float2 pu = *reinterpret_cast<const float2*>(pur + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + col + e;
+        const float L2 = e ? l2.y : l2.x, D = e ? dd.y : dd.x, U = e ? pu.y : pu.x;
+        float x0 = f0 != 0.f ? f0 : st[4 * c + e] * sl2;
+        float x1 = f1 != 0.f ? f1 : st[4 * c + 2 + e] * sl2;
+        if (diag) {
+          if (kr0 > i) x0 = fminf(x0, kNegInf);
+          if (kr1 > i) x1 = fminf(x1, kNegInf);
+        }
+        const float p0 = exp2f(x0 - L2), p1 = exp2f(x1 - L2);
+        st[4 * c + e] = p0 + in0 * U;
+        st[4 * c + 2 + e] = p1 + in1 * U;
+        dp[4 * c + e] = p0 * (dp[4 * c + e] - D);
+        dp[4 * c + 2 + e] = p1 * (dp[4 * c + 2 + e] - D);
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    to_operand(st, pa);
+    to_operand(dp, sa);
+    wgmma_fence();
+    gemm_pb(dv, pa, g_tile);  // dV += Pᵀ·dO
+    gemm_pb(dk, sa, q_tile);  // dK += dSᵀ·Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dK, dV are dense (B, Tk, H, Dh)
+  // dK, dV are dense (B, Tk, H, 64)
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (key_lo < Tk) {
-      const long long o = ((long long)b * Tk + key_lo) * H * kTcDh + (long long)h * kTcDh + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[n][0], dva[n][1]);
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (kr0 < p.Tk) {
+      const long long off = ((long long)b * p.Tk + kr0) * p.H * kDh + (long long)h * kDh + col;
+      *reinterpret_cast<uint32_t*>(p.dk + off) =
+          pack_bf16(dk[4 * c] * p.scale, dk[4 * c + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c], dv[4 * c + 1]);
     }
-    if (key_hi < Tk) {
-      const long long o = ((long long)b * Tk + key_hi) * H * kTcDh + (long long)h * kTcDh + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[n][2], dva[n][3]);
+    if (kr1 < p.Tk) {
+      const long long off = ((long long)b * p.Tk + kr1) * p.H * kDh + (long long)h * kDh + col;
+      *reinterpret_cast<uint32_t*>(p.dk + off) =
+          pack_bf16(dk[4 * c + 2] * p.scale, dk[4 * c + 3] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c + 2], dv[4 * c + 3]);
     }
   }
 }
 
-// dQ: a block owns 64 queries (16 per warp, Q and dO as A fragments in
-// registers) and walks the key tiles, staged 64 keys at a time.
-__global__ void __launch_bounds__(32 * kTcWarps)
-bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ kv_mask,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, Strides st, int do_sb, int do_st,
-                 int Tq, int Tk, int H, int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTcKeys][kTcStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTcKeys][kTcStride];
-  __shared__ float flag[kTcKeys];
+constexpr int kDqSmemBytes = 1024 + (2 + 2 * kStages) * kTileBytes +
+                             kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+
+// dQ: one block per (64 queries, head, batch), one consumer warpgroup
+// (warps 0..3) and one producer warp (warp 4); Q and dO tiles resident, K/V tiles and key flags stream through the
+// ring.  S = Q·Kᵀ and dP = dO·Vᵀ (SS), dS in the accumulators, dQ += dS·K
+// (RS, K read transposed).
+// At least three blocks per SM.
+__global__ void __launch_bounds__(160, 3)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do, const BwdParams p) {
+  using namespace hopper;
+  constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
+  constexpr float kNegInf = hopper::kNegInf;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* qs = base;
+  uint8_t* gs = qs + kTileBytes;
+  uint8_t* ks = gs + kTileBytes;
+  uint8_t* vs = ks + kStages * kTileBytes;
+  float* flag = reinterpret_cast<float*>(vs + kStages * kTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(flag + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
   const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = blockIdx.x * kTcRows + warp * 16 + g;
-  const int r_hi = r_lo + 8;
+  const float* mask_b = p.mask + (long long)b * p.Tk;
+  const long long row0 = ((long long)b * p.H + h) * p.Tq;
 
-  uint32_t qa[4][4], ga[4][4];
-  {
-    const __nv_bfloat16* qb = q + (long long)b * st.q_sb + h * kTcDh;
-    const __nv_bfloat16* gb = dout + (long long)b * do_sb + h * kTcDh;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = r_lo < Tq ? ld32(qb + (long long)r_lo * st.q_st + c) : 0u;
-      qa[kk][1] = r_hi < Tq ? ld32(qb + (long long)r_hi * st.q_st + c) : 0u;
-      qa[kk][2] = r_lo < Tq ? ld32(qb + (long long)r_lo * st.q_st + c + 8) : 0u;
-      qa[kk][3] = r_hi < Tq ? ld32(qb + (long long)r_hi * st.q_st + c + 8) : 0u;
-      ga[kk][0] = r_lo < Tq ? ld32(gb + (long long)r_lo * do_st + c) : 0u;
-      ga[kk][1] = r_hi < Tq ? ld32(gb + (long long)r_hi * do_st + c) : 0u;
-      ga[kk][2] = r_lo < Tq ? ld32(gb + (long long)r_lo * do_st + c + 8) : 0u;
-      ga[kk][3] = r_hi < Tq ? ld32(gb + (long long)r_hi * do_st + c + 8) : 0u;
+  // Key tiles: all, or under causality up to the last one a row of the
+  // block can see (rows with no visible valid key have dS = 0 everywhere).
+  int n_kt = (p.Tk + kRows - 1) / kRows;
+  if (p.causal) n_kt = min(n_kt, (min(p.Tq, q0 + kRows) - 1) / kRows + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4);
     }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
-  const float* lb = lse + ((long long)b * H + h) * Tq;
-  const float* db = delta + ((long long)b * H + h) * Tq;
-  const float L_lo = r_lo < Tq ? lb[r_lo] : 0.f, L_hi = r_hi < Tq ? lb[r_hi] : 0.f;
-  const float D_lo = r_lo < Tq ? db[r_lo] : 0.f, D_hi = r_hi < Tq ? db[r_hi] : 0.f;
-  // rows past Tq and all-masked rows have dS = 0 everywhere
-  const bool w_lo = r_lo < Tq && L_lo != kNegInf;
-  const bool w_hi = r_hi < Tq && L_hi != kNegInf;
+  __syncthreads();
 
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const __nv_bfloat16* kb = k + (long long)b * st.k_sb + h * kTcDh;
-  const __nv_bfloat16* vb = v + (long long)b * st.v_sb + h * kTcDh;
-  const float* mb = kv_mask + (long long)b * Tk;
-  for (int j0 = 0; j0 < Tk; j0 += kTcKeys) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTcKeys * kTcDh / 8; idx += 32 * kTcWarps) {
-      const int j = idx / (kTcDh / 8), c = (idx % (kTcDh / 8)) * 8;
-      uint4 k4 = make_uint4(0, 0, 0, 0), v4 = make_uint4(0, 0, 0, 0);
-      if (j0 + j < Tk) {
-        k4 = *reinterpret_cast<const uint4*>(kb + (long long)(j0 + j) * st.k_st + c);
-        v4 = *reinterpret_cast<const uint4*>(vb + (long long)(j0 + j) * st.v_st + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][c]) = k4;
-      *reinterpret_cast<uint4*>(&vs[j][c]) = v4;
+  if (warp == 4) {  // ---- producer warp
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * kTileBytes);
+      tma_load(qs, &map_q, qbar, h, q0, b);
+      tma_load(gs, &map_do, qbar, h, q0, b);
     }
-    if (threadIdx.x < kTcKeys) flag[threadIdx.x] = key_flag(mb, j0 + threadIdx.x, Tk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];  // S then dS; dP
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kr = &ks[n * 8 + g][kk * 16 + 2 * t];
-        const __nv_bfloat16* vr = &vs[n * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[n], ga[kk], ld32(vr), ld32(vr + 8));
+      for (int e = 0; e < 2; ++e) {
+        const int j = kt * kRows + lane + 32 * e;
+        flag[s * kRows + lane + 32 * e] =
+            j < p.Tk ? (mask_b[j] > 0.f ? 0.f : kNegInf) : -INFINITY;
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jj = n * 8 + 2 * t + (e & 1);
-        const bool hi = e >= 2;
-        const int row = hi ? r_hi : r_lo;
-        const bool vis = (hi ? w_hi : w_lo) && flag[jj] > 0.f &&
-                         (!causal || j0 + jj <= row);
-        const float p = vis ? expf(s[n][e] * scale - (hi ? L_hi : L_lo)) : 0.f;
-        s[n][e] = vis ? p * (dp[n][e] - (hi ? D_hi : D_lo)) : 0.f;
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * kTileBytes);
+        tma_load(ks + s * kTileBytes, &map_k, &full[s], h, kt * kRows, b);
+        tma_load(vs + s * kTileBytes, &map_v, &full[s], h, kt * kRows, b);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
+    return;
+  }
+  // ---- consumer warpgroup: its queries are the accumulator rows
+  const int w = warp, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * w + g, r1 = r0 + 8;
+  float L20, D0, U0, L21, D1, U1;  // U: unused here (all-masked rows have dS = 0)
+  row_terms(p, row0, r0, &L20, &D0, &U0);
+  row_terms(p, row0, r1, &L21, &D1, &U1);
+  const uint8_t* q_tile = qs;
+  const uint8_t* g_tile = gs;
+  const float sl2 = p.scale_log2;
+
+  float dq[32], sc[32], dp[32];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
-      sa[1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
-      sa[2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
-      sa[3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
-      const int key = c * 16 + 2 * t;
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    const int j0 = kt * kRows;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint8_t* k_tile = ks + s * kTileBytes;
+    wgmma_fence();
+    gemm_abt(sc, q_tile, k_tile);                   // S
+    gemm_abt(dp, g_tile, vs + s * kTileBytes);      // dP
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool diag = p.causal && j0 + kRows - 1 > q0;
+    const float* fl = flag + s * kRows;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int d = n * 8 + g;
-        mma_bf16(acc[n], sa, pack_bf16(ks[key][d], ks[key + 1][d]),
-                 pack_bf16(ks[key + 8][d], ks[key + 9][d]));
+    for (int c = 0; c < 8; ++c) {
+      const float2 f = *reinterpret_cast<const float2*>(fl + 8 * c + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float fe = e ? f.y : f.x;
+        const int j = j0 + 8 * c + 2 * t + e;
+        float x0 = fe != 0.f ? fe : sc[4 * c + e] * sl2;
+        float x1 = fe != 0.f ? fe : sc[4 * c + 2 + e] * sl2;
+        if (diag) {
+          if (j > r0) x0 = fminf(x0, kNegInf);
+          if (j > r1) x1 = fminf(x1, kNegInf);
+        }
+        dp[4 * c + e] = exp2f(x0 - L20) * (dp[4 * c + e] - D0);
+        dp[4 * c + 2 + e] = exp2f(x1 - L21) * (dp[4 * c + 2 + e] - D1);
       }
     }
+    uint32_t sa[4][4];
+    to_operand(dp, sa);
+    wgmma_fence();
+    gemm_pb(dq, sa, k_tile);  // dQ += dS·K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+  // dQ is dense (B, Tq, H, 64)
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r_lo < Tq)
-      *reinterpret_cast<uint32_t*>(dq + ((long long)b * Tq + r_lo) * H * kTcDh +
-                                   (long long)h * kTcDh + col) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    if (r_hi < Tq)
-      *reinterpret_cast<uint32_t*>(dq + ((long long)b * Tq + r_hi) * H * kTcDh +
-                                   (long long)h * kTcDh + col) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (r0 < p.Tq)
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r0) * p.H * kDh +
+                                   (long long)h * kDh + col) =
+          pack_bf16(dq[4 * c] * p.scale, dq[4 * c + 1] * p.scale);
+    if (r1 < p.Tq)
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r1) * p.H * kDh +
+                                   (long long)h * kDh + col) =
+          pack_bf16(dq[4 * c + 2] * p.scale, dq[4 * c + 3] * p.scale);
   }
-}
-
-bool tc_ok(const void* p, int sb, int st) {
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && sb % 8 == 0 &&
-         st % 8 == 0;
 }
 
 bool args_ok(int B, int Tq, int Tk, int H, int Dh) {
@@ -910,12 +858,55 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask,
   return (int)cudaGetLastError();
 }
 
+using BwdKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdParams);
+
+template <BwdKernel kernel>
+int launch_bwd_kernel(int smem, int blocks, int H, int B, const CUtensorMap& mq,
+                      const CUtensorMap& mk, const CUtensorMap& mv,
+                      const CUtensorMap& mdo, const BwdParams& p, cudaStream_t s) {
+  static const int attr = hopper::set_smem(kernel, smem);
+  if (attr != 0) return attr;
+  kernel<<<dim3(blocks, H, B), 160, smem, s>>>(mq, mk, mv, mdo, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* mask,
+                      const void* o, const float* lse, const void* dout, void* dq,
+                      void* dk, void* dv, float* delta, const Strides& st, int do_sb,
+                      int do_st, int B, int Tq, int Tk, int H, int causal,
+                      cudaStream_t s) {
+  using hopper::make_map;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = make_map(&mq, q, B, Tq, H, st.q_sb, st.q_st);
+  if (rc == 0) rc = make_map(&mk, k, B, Tk, H, st.k_sb, st.k_st);
+  if (rc == 0) rc = make_map(&mv, v, B, Tk, H, st.v_sb, st.v_st);
+  if (rc == 0) rc = make_map(&mdo, dout, B, Tq, H, do_sb, do_st);
+  if (rc != 0) return rc;
+  const long long rows = (long long)B * Tq * H;
+  bwd_delta_rows_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0, s>>>(
+      static_cast<const hopper::bf16*>(o), static_cast<const hopper::bf16*>(dout), delta,
+      st.o_sb, st.o_st, do_sb, do_st, B, Tq, H);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const float scale = rsqrtf((float)hopper::kDh);
+  const BwdParams p{mask, lse, delta, static_cast<hopper::bf16*>(dq),
+                    static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv),
+                    Tq, Tk, H, causal, scale, scale * hopper::kLog2e, 1.f / (float)Tk};
+  constexpr int R = hopper::kRows;
+  rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel>(kDkdvSmemBytes, (Tk + R - 1) / R, H, B,
+                                                mq, mk, mv, mdo, p, s);
+  if (rc != 0) return rc;
+  return launch_bwd_kernel<bwd_dq_wgmma_kernel>(kDqSmemBytes, (Tq + R - 1) / R, H, B, mq,
+                                                mk, mv, mdo, p, s);
+}
+
 }  // namespace
 
 // Strides are in elements; the head and Dh dimensions are dense (head
 // stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.
 // causal: 0 or 1.  Each entry returns cudaGetLastError() after its launches
-// (0 = launched), or -1 when the arguments are outside what it takes.
+// (0 = launched), -1 when the arguments are outside what it takes, or
+// another nonzero code when a TMA tensor map cannot be encoded.
 
 // o: (B, Tq, H, Dh) with strides o_sb / o_st; lse: (B, H, Tq) fp32, dense.
 extern "C" int train_flash_attention_fwd(
@@ -931,17 +922,11 @@ extern "C" int train_flash_attention_fwd(
   if (dtype == 0)
     return launch_fwd<float>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, s);
   if (dtype != 1) return -1;
-  if (Dh == kTcDh && tc_ok(q, q_sb, q_st) && tc_ok(k, k_sb, k_st) &&
-      tc_ok(v, v_sb, v_st) && tc_ok(o, o_sb, o_st)) {
-    const dim3 grid((Tq + kTcRows - 1) / kTcRows, H, B);
-    fwd_tc_kernel<<<grid, 32 * kTcWarps, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask,
-        static_cast<__nv_bfloat16*>(o), L, st, Tq, Tk, H, causal,
-        rsqrtf((float)Dh));
-    return (int)cudaGetLastError();
-  }
+  if (Dh == hopper::kDh && hopper::tma_ok(q, B, q_sb, Tq, q_st) &&
+      hopper::tma_ok(k, B, k_sb, Tk, k_st) && hopper::tma_ok(v, B, v_sb, Tk, v_st) &&
+      hopper::tma_ok(o, B, o_sb, Tq, o_st))
+    return hopper::launch_fwd<true>(q, k, v, mask, o, L, q_sb, q_st, k_sb, k_st, v_sb,
+                                    v_st, o_sb, o_st, B, Tq, Tk, H, causal, s);
   return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh,
                                    causal, s);
 }
@@ -964,33 +949,11 @@ extern "C" int train_flash_attention_bwd(
     return launch_bwd<float>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
                              do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
   if (dtype != 1) return -1;
-  if (Dh == kTcDh && tc_ok(q, q_sb, q_st) && tc_ok(k, k_sb, k_st) &&
-      tc_ok(v, v_sb, v_st) && tc_ok(dout, do_sb, do_st)) {
-    const float scale = rsqrtf((float)Dh);
-    const long long rows = (long long)B * Tq * H;
-    bwd_delta_kernel<__nv_bfloat16><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dout), D, o_sb, o_st, do_sb, do_st, B,
-        Tq, H, Dh);
-    int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    const auto* qh = static_cast<const __nv_bfloat16*>(q);
-    const auto* kh = static_cast<const __nv_bfloat16*>(k);
-    const auto* vh = static_cast<const __nv_bfloat16*>(v);
-    const auto* gh = static_cast<const __nv_bfloat16*>(dout);
-    const dim3 gk((Tk + kTcRows - 1) / kTcRows, H, B);
-    bwd_dkdv_tc_kernel<<<gk, 32 * kTcWarps, 0, s>>>(
-        qh, kh, vh, mask, gh, L, D, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), st, do_sb, do_st, Tq, Tk, H, causal,
-        scale);
-    rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    const dim3 gq((Tq + kTcRows - 1) / kTcRows, H, B);
-    bwd_dq_tc_kernel<<<gq, 32 * kTcWarps, 0, s>>>(
-        qh, kh, vh, mask, gh, L, D, static_cast<__nv_bfloat16*>(dq), st, do_sb,
-        do_st, Tq, Tk, H, causal, scale);
-    return (int)cudaGetLastError();
-  }
+  if (Dh == hopper::kDh && hopper::tma_ok(q, B, q_sb, Tq, q_st) &&
+      hopper::tma_ok(k, B, k_sb, Tk, k_st) && hopper::tma_ok(v, B, v_sb, Tk, v_st) &&
+      hopper::tma_ok(o, B, o_sb, Tq, o_st) && hopper::tma_ok(dout, B, do_sb, Tq, do_st))
+    return launch_bwd_hopper(q, k, v, mask, o, L, dout, dq, dk, dv, D, st, do_sb, do_st,
+                             B, Tq, Tk, H, causal, s);
   return launch_bwd<__nv_bfloat16>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
                                    do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
 }

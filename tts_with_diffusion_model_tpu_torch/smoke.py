@@ -115,6 +115,15 @@ def phase_build(device: torch.device) -> float:
     libs = _build.build_all(log=log)
     secs = time.perf_counter() - t0
     log(f"build: {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {secs:.2f} s via nvcc + ctypes")
+    for name, path in sorted(libs.items()):
+        counts = _build.sass_counts(path)
+        if isinstance(counts, str):
+            log(f"sass: {path.name}: {counts}")
+            continue
+        log(f"sass: {path.name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        check(all(counts.values()),
+              f"{path.name}: no {[op for op, n in counts.items() if not n]} instruction: "
+              "the bf16 path does not run on wgmma fed by TMA")
     return secs
 
 
@@ -245,6 +254,8 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias), device)
         res["bound_ms"], res["bound_by"] = bound_ms(B, site.Tq, site.Tk, site.H, site.Dh, dtype)
+        res["vs_library"] = res["ms"] / res["library_ms"]
+        res["vs_bound"] = res["ms"] / res["bound_ms"]
     # the comparison's own launches are not the main path's
     attn_ops.masked_attention.launches = before
     return res
@@ -270,6 +281,9 @@ def phase_kernel_check(device, dit_cfg, nar_dims: dict, steps: int, B: int,
                     r["count"] = site.count if pb == timed_bucket else 0
                     results.append(r)
                     log(json.dumps(r))
+                    if "vs_library" in r:
+                        log(f"ratio: masked_attention {r['site']} {r['Tq']}x{r['Tk']}: "
+                            f"kernel/SDPA {r['vs_library']:.3f}, kernel/bound {r['vs_bound']:.2f}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
     return results

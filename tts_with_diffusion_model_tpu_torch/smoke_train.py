@@ -26,8 +26,8 @@ import torch
 
 from .ops import masked_attention as serve_ops
 from .ops import train_flash_attention as train_ops
-from .smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, REPO, SMOKE_DIR, TOL, _time_ms, check,
-                    default_symmap, log)
+from .smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, REPO, SMOKE_DIR, TOL, _eager_ms, _time_ms,
+                    check, default_symmap, log)
 
 REPLACES = "tts_with_diffusion_model_tpu/ops/attention.py:59"
 SOURCE = "tts_with_diffusion_model_tpu_torch/csrc/train_flash_attention.cu"
@@ -175,7 +175,8 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
     kernel's forward and backward, and of the forward and forward + backward
     of the plain version and of SDPA with a boolean key mask: calls captured
     in a CUDA graph and replayed between CUDA events (``smoke._time_ms``,
-    host launch cost excluded, inputs L2-warm)."""
+    host launch cost excluded, inputs L2-warm); and the kernel's eager wall
+    ms per forward and per backward call (host cost included)."""
     fn = train_ops.train_flash_attention
     counts = (fn.launches, fn.backward_launches, fn.plain_calls)
     q, k, v, km, do = _site_inputs(s, dtype, device, seed)
@@ -217,8 +218,17 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
         for key, f in timings.items():
             res[key] = _time_ms(f, device, iters=5, reps=3)
         res["ms_fwdbwd"] = res["ms_fwd"] + res["ms_bwd"]
+        # wall ms per call of an eager loop: the host's share (ctypes, checks,
+        # tensor-map encoding) beside the device time above
+        res["eager_ms_fwd"] = _eager_ms(timings["ms_fwd"], device, iters=20)
+        res["eager_ms_bwd"] = _eager_ms(timings["ms_bwd"], device, iters=20)
         qk, pv = work(s, km)
         res.update(train_bound_ms(s, dtype, qk, pv))
+        lib_bwd = res["library_ms_fwdbwd"] - res["library_ms_fwd"]
+        res["vs_library_fwd"] = res["ms_fwd"] / res["library_ms_fwd"]
+        res["vs_library_bwd"] = res["ms_bwd"] / lib_bwd
+        res["vs_bound_fwd"] = res["ms_fwd"] / res["fwd_bound_ms"]
+        res["vs_bound_bwd"] = res["ms_bwd"] / res["bwd_bound_ms"]
     fn.launches, fn.backward_launches, fn.plain_calls = counts
     return res
 
@@ -234,9 +244,33 @@ def phase_train_kernel_check(device, sites: list[TrainSite], seed: int = 0) -> l
                 r = check_train_site(s, dtype, device, seed, time_it=dtype == torch.bfloat16)
                 results.append(r)
                 log(json.dumps(r))
+                if "vs_library_fwd" in r:
+                    log(f"ratio: train_flash_attention {r['site']} {r['Tq']}x{r['Tk']}: kernel/SDPA "
+                        f"fwd {r['vs_library_fwd']:.3f} bwd {r['vs_library_bwd']:.3f}, kernel/bound "
+                        f"fwd {r['vs_bound_fwd']:.2f} bwd {r['vs_bound_bwd']:.2f}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
     return results
+
+
+def check_backward_determinism(s: TrainSite, device, seed: int = 0) -> dict:
+    """Two backward calls of the kernel on the same bf16 inputs (ragged
+    masks, one all-masked row) must give bit-identical dq, dk and dv: the
+    split has no atomics.  The comparison's launches are not counted."""
+    fn = train_ops.train_flash_attention
+    counts = (fn.launches, fn.backward_launches, fn.plain_calls)
+    q, k, v, km, do = _site_inputs(s, torch.bfloat16, device, seed)
+    o, lse = train_ops._forward(q, k, v, km, s.causal)
+    first = train_ops._backward(q, k, v, km, o, lse, do, s.causal)
+    second = train_ops._backward(q, k, v, km, o, lse, do, s.causal)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    same = {name: bool(torch.equal(a, b)) for name, a, b in zip(("dq", "dk", "dv"), first, second)}
+    fn.launches, fn.backward_launches, fn.plain_calls = counts
+    log(f"determinism: train_flash_attention backward at {s.name} (B={s.B}, {s.Tq}x{s.Tk}): "
+        + ", ".join(f"{n} {'bit-identical' if ok else 'DIFFERS'}" for n, ok in same.items()))
+    check(all(same.values()), f"{s.name}: two backward calls differ in {same}")
+    return same
 
 
 def per_step(r: dict, key: str) -> float | None:
