@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py [--zoo] [--seed 0] [--repeats 3] [--profile]
 
-Drives the port's two main paths at full width: D3PM MaskGIT serving
-(DiT → NAR → EnCodec) through ``Synthesizer``, and D3PM training through the
-train CLI's ``main`` on ``config/gen4c/diffusion.yml`` (8 steps over a
-seeded synthetic corpus, checkpoint and val-loss eval at the last).  Builds
-every CUDA kernel from the sources in this checkout with ``nvcc`` and counts
-the wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds
-each kernel against its plain PyTorch version at its main path's shapes
-(printing each site's kernel/SDPA and kernel/bound ratios), checks that the
-training backward is deterministic, and checks that each main path
-launched its kernels.  Weights are drawn from
+Drives the port's paths at full width: D3PM MaskGIT serving (DiT → NAR →
+EnCodec) through ``Synthesizer``, and training through the train CLI's
+``main`` on the gen4c recipes ``config/gen4c/diffusion.yml``, ``nar.yml``
+and ``ar.yml`` (8 steps each over a seeded synthetic corpus, checkpoint and
+val-loss eval at the last).  Builds every CUDA kernel from the sources in
+this checkout with ``nvcc`` and counts the wgmma (HGMMA) and TMA (UTMALDG)
+instructions in each library, holds each kernel against its plain PyTorch
+version at every shape these paths give it (printing each site's
+kernel/SDPA and kernel/bound ratios), checks that the training backward is
+deterministic, and checks that each path launched its kernels the number
+of times its config says.  Weights are drawn from
 ``--seed`` unless ``--zoo`` loads the committed serving bundles.  Prints each
 phase's seconds as it goes; the last lines are the kernels' JSON, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -62,15 +63,13 @@ def main() -> int:
         results = smoke.phase_kernel_check(
             device, cfg, nar_dims, steps=12, B=len(smoke.TEXTS),
             prompt_buckets=(128, 256, 384, 398), timed_bucket=256, seed=args.seed)
+        eval_B, eval_site = smoke_train.nar_eval_site()
+        eval_results = smoke.phase_site_check(device, eval_site, eval_B, seed=args.seed)
     with smoke.phase("train kernel vs plain"):
-        from tts_with_diffusion_model_tpu_torch.config import Config
-        from tts_with_diffusion_model_tpu_torch.train.train import build_model
-
-        train_cfg = Config.from_cli([f"yaml={smoke_train.TRAIN_YAML}"])
-        train_sites = smoke_train.train_attention_sites(
-            build_model(train_cfg), train_cfg.batch_size, min(train_cfg.resp_len_buckets))
+        train_cfg, train_model = smoke_train.recipe(smoke_train.TRAIN_YAML)
+        train_sites = smoke_train.step_sites(train_model, train_cfg)
         train_results = smoke_train.phase_train_kernel_check(
-            device, [*train_sites, smoke_train.ar_causal_site()], seed=args.seed)
+            device, [*train_sites, *smoke_train.packed_sites()], seed=args.seed)
         smoke_train.check_backward_determinism(
             next(s for s in train_sites if s.name == "DiT self"), device, seed=args.seed)
     with smoke.phase("slice"):
@@ -83,20 +82,35 @@ def main() -> int:
                 f"prompt bucket {sl['prompt_bucket']} != the timed bucket 256")
     smoke.check(sl["expected"] == 376, f"expected launches {sl['expected']} != 376")
     smoke.check(sl["launches"] > 0, "the main path never launched masked_attention")
-    with smoke.phase("train"):
-        tr = smoke_train.phase_train(device, seed=args.seed)
-    if args.profile:
-        with smoke.phase("profile train step"):
-            smoke_train.profile_train_step(tr["engines"], tr["cfg"])
-    peak_gib = tr["peak_bytes"] / 2**30
-    smoke.log(f"train: step p50 {tr['p50_step_s'] * 1e3:.1f} ms, "
-              f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated {peak_gib:.2f} GiB "
-              f"on {info['smi']}")
-    smoke.check((tr["fwd_per_step"], tr["bwd_per_step"]) == (52, 28),
-                f"train launches per step {tr['fwd_per_step']}+{tr['bwd_per_step']} != 52+28")
-    kernels = [smoke.kernel_summary(results, sl["launches"]),
-               smoke_train.train_kernel_summary(train_results, tr["fwd_per_step"],
-                                                tr["bwd_per_step"], tr["run_launches"])]
+    sl_launches = sl["launches"]
+    del sl
+    # each recipe with the kernel-2 launches per step its config gives
+    # (remat: every block's forward again in the backward)
+    runs, eval_runs, nar_eval_launches = [], [], None
+    for name, yaml, want in (("train", smoke_train.TRAIN_YAML, (52, 28)),
+                             ("train nar", smoke_train.NAR_YAML, (24, 12)),
+                             ("train ar", smoke_train.AR_YAML, (24, 12))):
+        with smoke.phase(name):
+            tr = smoke_train.phase_train(device, yaml, seed=args.seed)
+        if args.profile and name != "train ar":
+            with smoke.phase(f"profile {name} step"):
+                smoke_train.profile_train_step(tr["engines"], tr["cfg"])
+        smoke.check((tr["fwd_per_step"], tr["bwd_per_step"]) == want,
+                    f"{name}: launches per step {tr['fwd_per_step']}+{tr['bwd_per_step']} "
+                    f"!= {want[0]}+{want[1]}")
+        path = tr["sites"][0].path
+        smoke.log(f"{name}: step p50 {tr['p50_step_s'] * 1e3:.1f} ms, "
+                  f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated "
+                  f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
+        runs.append((path, tr["fwd_per_step"], tr["bwd_per_step"], tr["run_launches"]))
+        if path == "nar":
+            nar_eval_launches = tr["eval_launches"]
+        elif path == "ar":  # the training kernel's forward under no_grad
+            eval_runs.append(("ar eval", tr["eval_per_batch"], 0, tr["eval_launches"]))
+        del tr
+        torch.cuda.empty_cache()
+    kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches),
+               smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,7 +27,7 @@ def _needs(path: Path):
         pytest.skip(f"{path.relative_to(REPO)} is not in this checkout")
 
 
-@pytest.mark.parametrize("bundle", ["diffusion", "nar"])
+@pytest.mark.parametrize("bundle", ["diffusion", "nar", "ar"])
 def test_zoo_bundle_lands_in_port_parameters(bundle):
     _needs(ZOO / bundle / "params.npz")
     flat, meta, phones, _ = load_bundle(ZOO / bundle)
@@ -120,7 +120,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert len(names) >= 30
     for mod in ("train.__main__", "train.train", "train.trainer", "train.engine", "config",
                 "data.dataset", "data.sampler", "utils.config_base", "utils.logging",
-                "ops.train_flash_attention", "ops.route", "models"):
+                "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
+                "smoke_train"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

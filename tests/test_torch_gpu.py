@@ -237,3 +237,66 @@ def test_tiny_train_steps_go_through_the_training_kernel(cuda):
     # phase_train checks the launches of every step against these counts
     assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 + 2 + 2 * 2 * 3, 2 + 2 + 2 * 3)
     assert out["run_launches"] == 2 * (16 + 10) and out["eval_launches"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_packed_self_attention_gradients_land_in_the_fused_qkv(cuda, dtype, tol, causal):
+    """The NAR's (non-causal) and the AR's (causal) 770-slot packed
+    self-attention at H = 16: q, k, v are strided views of one fused
+    projection, and dq, dk, dv must land in its gradient."""
+    rs = np.random.RandomState(770 + causal)
+    base = torch.from_numpy(rs.randn(2, 770, 3, 16, 64).astype(np.float32)).to(dtype).to(cuda)
+    do = torch.from_numpy(rs.randn(2, 770, 16, 64).astype(np.float32)).to(dtype).to(cuda)
+    km = (rs.rand(2, 770) > 0.2).astype(np.float32)
+    km[:, 0] = 1
+    km[1, 500:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    grads = []
+    for fn in (train_flash_attention, train_flash_attention_plain):
+        qkv = base.detach().clone().requires_grad_(True)
+        o = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], km, causal)
+        (g,) = torch.autograd.grad(o, qkv, do)
+        grads.append((o.detach(), g))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        scale = max(1.0, b.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_eval_bucket_self_attention_at_1474_slots(cuda, dtype, tol):
+    """The AR/NAR val-loss eval pads to the max_*_len bucket (1474 packed
+    slots): kernel 1 non-causal and kernel 2's forward causal."""
+    rs = np.random.RandomState(1474)
+    q, k, v = (torch.from_numpy(rs.randn(2, 1474, 16, 64).astype(np.float32)).to(dtype).to(cuda)
+               for _ in range(3))
+    km = np.ones((2, 1474), np.float32)
+    km[0, 30:65] = 0  # text pads, then prompt pads mid-row
+    km[0, 400:962] = 0
+    km[1, 1100:] = 0
+    km = torch.from_numpy(km).to(cuda)
+    with torch.no_grad():
+        pairs = [(masked_attention(q, k, v, km), masked_attention_plain(q, k, v, km)),
+                 (train_flash_attention(q, k, v, km, True),
+                  train_flash_attention_plain(q, k, v, km, True))]
+    for got, ref in pairs:
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("yaml", ["nar", "ar"])
+def test_tiny_nar_and_ar_train_steps_go_through_the_training_kernel(cuda, yaml):
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    overrides = ["model_overrides={d_model: 128, n_heads: 2, n_layers: 2}", "batch_size=4",
+                 "eval_batch_size=8", "max_num_val=8", "nj=1", "resp_len_buckets=[32]",
+                 "prom_len_buckets=[64]", "max_prom_len=128", "max_resp_len=64"]
+    out = smoke_train.phase_train(cuda, getattr(smoke_train, f"{yaml.upper()}_YAML"), steps=2,
+                                  overrides=overrides, corpus=(3, 12, (8, 30), (3, 12)))
+    # phase_train checks the launches of every step against these counts
+    assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 * 2, 2)
+    assert out["run_launches"] == 2 * 6 and out["eval_launches"] == 2 * out["eval_per_batch"]

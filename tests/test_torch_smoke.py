@@ -97,7 +97,7 @@ def test_train_phases_rehearsal():
              smoke_train.TrainSite("causal", 4, 7, 9, 2, 8, True, 0, 0)]
     res = smoke_train.phase_train_kernel_check(CPU, sites)
     assert len(res) == 4 and all(r["max_abs_err"] == 0.0 for r in res)
-    line = smoke_train.train_kernel_summary(res, 2, 1, 0)
+    line = smoke_train.train_kernel_summary(res, [("d3pm", 2, 1, 0)])
     assert line["launches"] == 3 and line["ms"] is None and line["source"].endswith(".cu")
     overrides = ["device=cpu", "model_overrides={d_model: 32, n_heads: 2, n_layers: 2, "
                  "timesteps: 8, text_len: 50, prom_len: 64, resp_len: 48}", "batch_size=4",
@@ -106,3 +106,64 @@ def test_train_phases_rehearsal():
                                   corpus=(3, 12, (8, 30), (3, 12)))
     assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 + 2 + 2 * 2 * 3, 2 + 2 + 2 * 3)
     assert len(out["eval"]) == 2 and out["moved"] > 0 and out["run_launches"] == 0
+
+
+def test_nar_and_ar_steps_run_24_forward_and_12_backward_packed_attentions():
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    sites = {s.name: s for s in smoke_train.packed_sites()}
+    shape = {n: (s.B, s.Tq, s.Tk, s.H, s.Dh, s.causal, s.fwd, s.bwd, s.fused)
+             for n, s in sites.items()}
+    packed = 64 + 1 + 512 + 1 + 192
+    evalT = 64 + 1 + 896 + 1 + 512  # the eval loaders pad to the max_* bucket
+    assert shape == {
+        "NAR packed self": (16, packed, packed, 16, 64, False, 24, 12, True),
+        "AR packed causal self": (16, packed, packed, 16, 64, True, 24, 12, True),
+        "ar-quarter packed causal self": (64, packed, packed, 4, 64, True, 24, 12, True),
+        "AR eval causal self": (32, evalT, evalT, 16, 64, True, 12, 0, True)}
+    B, site = smoke_train.nar_eval_site()
+    assert (B, site.Tq, site.Tk, site.H, site.Dh, site.count) == (32, evalT, evalT, 16, 64, 12)
+
+
+@pytest.mark.parametrize("yaml", ["nar", "ar"])
+def test_nar_and_ar_train_phases_rehearsal(yaml):
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    sites = [smoke_train.TrainSite("packed", 4, 12, 12, 2, 8, yaml == "ar", 4, 2, path=yaml,
+                                   fused=True)]
+    res = smoke_train.phase_train_kernel_check(CPU, sites)
+    assert len(res) == 2 and all(r["max_abs_err"] == 0.0 and r["fused"] for r in res)
+    overrides = ["device=cpu", "model_overrides={d_model: 32, n_heads: 2, n_layers: 2}",
+                 "batch_size=4", "eval_batch_size=8", "max_num_val=8", "nj=1",
+                 "resp_len_buckets=[32]", "prom_len_buckets=[64]", "max_prom_len=128",
+                 "max_resp_len=64"]
+    out = smoke_train.phase_train(CPU, getattr(smoke_train, f"{yaml.upper()}_YAML"), steps=2,
+                                  overrides=overrides, corpus=(3, 12, (8, 30), (3, 12)))
+    assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 * 2, 2)
+    assert out["eval_kernel"] == ("train_flash_attention" if yaml == "ar" else "masked_attention")
+    assert out["eval_launches"] == 2 * out["eval_per_batch"] == 2 * 2  # subtrain + val batch
+    assert out["moved"] > 0 and out["run_launches"] == 0 and out["sites"][0].path == yaml
+    line = smoke_train.train_kernel_summary(res, [(yaml, 4, 2, 0)], [("ar eval", 2, 0, 4)])
+    assert line["paths"][yaml]["launches"] == 6 and line["ms"] is None
+    assert line["launches"] == 6 and line["launches_run"] == 4
+
+
+def test_eval_site_rehearsal_and_kernel_line_paths():
+    site = smoke.Site("eval self", 20, 20, 2, 8, 3)
+    res = smoke.phase_site_check(CPU, site, B=4)
+    assert len(res) == 2 and all(r["max_abs_err"] == 0.0 and r["count"] == 3 for r in res)
+    line = smoke.kernel_summary(res, launches=0, eval_results=res, eval_launches=6)
+    assert set(line["paths"]) == {"serving", "nar eval"}
+    assert line["paths"]["nar eval"]["launches_run"] == 6
+
+
+def test_work_counts_every_query_row_of_a_key_mask():
+    km = torch.ones(2, 10)
+    km[1, 5:] = 0
+    km[0] = 0  # every key masked: no q·k, but the row averages all 10 values
+    assert smoke.work(km, 10, 3) == (10 * 5 * 3, (10 * 5 + 10 * 10) * 3)
+    assert smoke.work(km, 10, 3, causal=True) == (40 * 3, (40 + 100) * 3)
+    full = smoke.bound_ms(16, 770, 770, 16, 64, torch.bfloat16)
+    ones = smoke.bound_ms(16, 770, 770, 16, 64, torch.bfloat16,
+                          smoke.work(torch.ones(16, 770), 770, 16))
+    assert full == ones and full[1] == "operations"

@@ -1,9 +1,14 @@
 """Model registry (counterpart of ``models/__init__.py`` in the JAX package).
 
-``get_model(name)`` dispatches on the name prefix.  Only the D3PM
-``diffusion`` family is ported: registry defaults d_model 512, 8 heads,
-8 blocks, 100 timesteps, ``n_classes = num_tokens + 1``.  The other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``get_model(name)`` dispatches on the name prefix:
+
+- ``diffusion``: the D3PM family, registry defaults d_model 512, 8 heads,
+  8 blocks, 100 timesteps, ``n_classes = num_tokens + 1``;
+- ``ar`` / ``nar`` (with ``-quarter`` 256/4/12, ``-half`` 512/8/12, bare
+  1024/16/12).
+
+The Gaussian family raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -12,28 +17,49 @@ import dataclasses
 
 import torch
 
+from .ar import AR
 from .diffusion import DiffusionConfig, DiffusionModel
+from .nar import NAR
 
-_NOT_PORTED = (
-    ("diffusion-gaussian", "the Gaussian family is ROADMAP queue 1 item 14"),
-    ("ar", "AR training is ROADMAP queue 1 item 11 (after NAR training, item 12)"),
-    ("nar", "NAR training is the next slice of ROADMAP queue 1 item 12"),
-)
+#: the override keys the ar / nar branches read (the JAX registry's)
+_BACKBONE_KEYS = ("d_model", "n_heads", "n_layers", "remat", "remat_policy", "attn_impl")
+
+
+def _backbone_dims(name: str) -> dict:
+    """d_model / n_heads / n_layers of an ``ar*`` or ``nar*`` registry name."""
+    if "-quarter" in name:
+        return dict(d_model=256, n_heads=4, n_layers=12)
+    if "-half" in name:
+        return dict(d_model=512, n_heads=8, n_layers=12)
+    if name in ("ar", "nar"):
+        return dict(d_model=1024, n_heads=16, n_layers=12)
+    raise NotImplementedError(name)
 
 
 def get_model(name: str, num_tokens: int = 1024, overrides: dict | None = None,
               dtype=torch.bfloat16):
     """Build a model from its registry name.  ``overrides`` replaces
-    individual ``DiffusionConfig`` fields (unknown keys are ignored, as in
-    the JAX package); ``dtype`` is the compute precision."""
+    individual ``DiffusionConfig`` fields, or the backbone keys above for
+    ``ar`` / ``nar`` (unknown keys are ignored, as in the JAX package);
+    ``dtype`` is the compute precision."""
     name = name.lower()
-    for prefix, why in _NOT_PORTED:
-        if name.startswith(prefix):
-            raise NotImplementedError(f"model {name!r} is not ported yet: {why}")
-    if not name.startswith("diffusion"):
+    ov = overrides or {}
+    if name.startswith("diffusion-gaussian"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet: the Gaussian family is ROADMAP queue 1 "
+            "\"the Gaussian family\"")
+    if name.startswith("diffusion"):
+        cfg = DiffusionConfig(n_classes=num_tokens + 1, d_model=512, n_heads=8, n_layers=8,
+                              timesteps=100)
+        valid = {f.name for f in dataclasses.fields(DiffusionConfig)}
+        cfg = dataclasses.replace(cfg, **{k: v for k, v in ov.items() if k in valid})
+        return DiffusionModel(cfg, dtype=dtype)
+    if name.startswith("ar"):
+        model = AR
+    elif name.startswith("nar"):
+        model = NAR
+    else:
         raise ValueError("Model name should start with AR or NAR.")
-    cfg = DiffusionConfig(n_classes=num_tokens + 1, d_model=512, n_heads=8, n_layers=8,
-                          timesteps=100)
-    valid = {f.name for f in dataclasses.fields(DiffusionConfig)}
-    cfg = dataclasses.replace(cfg, **{k: v for k, v in (overrides or {}).items() if k in valid})
-    return DiffusionModel(cfg, dtype=dtype)
+    dims = _backbone_dims(name)
+    dims.update({k: v for k, v in ov.items() if k in _BACKBONE_KEYS})
+    return model(num_tokens, dtype=dtype, **dims)

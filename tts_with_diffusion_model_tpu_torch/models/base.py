@@ -3,14 +3,23 @@ package), and the flax-equivalent layers the port's models are built from.
 
 The packed slot layout ``[ text (Tt) | sep | proms (Tp) | sep | resps (Tr) ]``
 with per-segment masks and packed positions ``cumsum(mask) - 1`` is kept as
-it is.  Only the batch (non-cached) forward is ported; the AR KV-cache paths
-come with the AR slice.
+it is.  ``Base`` is the JAX constructor's trunk (causal or not, ``ln`` or
+``adaln`` norms, an optional stop token, dropout, per-block remat) in batch
+mode; the AR KV-cache paths (``prefill``, ``decode_step``,
+``decode_chunk``) are not ported yet.
 
 Dtypes follow flax's promotion so the port serves in the JAX package's
 precision: a ``Dense`` with a compute ``dtype`` casts input, weight and bias
 to it (bf16 in serving, fp32 for the logits heads); ``LayerNorm`` computes in
 fp32 and returns fp32 (its scale and bias stay fp32); embedding lookups keep
 the table's dtype.
+
+Dropout draws from explicit generators, never torch's default one: the
+forward takes the step's generator, draws one seed per block from it, and
+each block builds its masks from a fresh generator seeded with its seed.  A
+block recomputed under ``torch.utils.checkpoint`` therefore redraws the
+masks it drew the first time (checkpoint restores only the default
+generators' states).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import route
 
@@ -121,21 +131,52 @@ class AdaLN(nn.Module):
         return (torch.exp(log_gamma) * h + beta).to(x.dtype)
 
 
-class Attention(nn.Module):
-    """Non-causal multi-head attention over packed positions, batch mode
-    (the NAR's), through ``ops/route.attend``.  Keys are masked by the
-    kernel; padding query rows are zeroed by ``to_out(o) * mask``."""
+def refuse_remat_policy(remat_policy) -> None:
+    """Only whole-block recompute (``remat_policy: null``) is ported."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue 1, \"what is "
+            "left of training\"); use null (whole-block recompute)")
 
-    def __init__(self, d_model: int, n_heads: int, dtype=None):
+
+class Dropout:
+    """Inverted dropout at rate ``p`` from one block's seed (flax
+    ``nn.Dropout``: keep with probability 1 − p, scale kept values by
+    1 / (1 − p)).  Each call draws the next mask from the block's own
+    generator, so the block's sites take masks in a fixed order."""
+
+    def __init__(self, p: float, seed: int, device):
+        self.keep = 1.0 - p
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+
+    def __call__(self, x):
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < self.keep, x / self.keep, torch.zeros((), dtype=x.dtype,
+                                                                     device=x.device))
+
+
+def _no_dropout(x):
+    return x
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over packed slots, batch mode, through
+    ``ops/route.attend``: keys are masked by the kernel (and, with
+    ``causal``, hidden past the query's slot); padding query rows are zeroed
+    by ``to_out(o) * mask``.  q, k and v are read in place from the fused
+    ``to_qkv`` output."""
+
+    def __init__(self, d_model: int, n_heads: int, causal: bool = False, dtype=None):
         super().__init__()
-        self.d_model, self.n_heads = d_model, n_heads
+        self.d_model, self.n_heads, self.causal = d_model, n_heads, causal
         self.to_qkv = Dense(d_model, 3 * d_model, bias=False, dtype=dtype)
         self.to_out = Dense(d_model, d_model, dtype=dtype)
 
     def forward(self, x, mask):
         B, T, _ = x.shape
         qkv = self.to_qkv(x).view(B, T, 3, self.n_heads, self.d_model // self.n_heads)
-        o = route.attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask)
+        o = route.attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask, causal=self.causal)
         o = o.reshape(B, T, self.d_model)
         return self.to_out(o) * mask[..., None].to(x.dtype)
 
@@ -146,25 +187,45 @@ class FeedForward(nn.Module):
         self.fc1 = Dense(d_model, 4 * d_model, dtype=dtype)
         self.fc2 = Dense(4 * d_model, d_model, dtype=dtype)
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, drop=_no_dropout):
+        return self.fc2(drop(gelu(self.fc1(x))))
 
 
 class PrenormBlock(nn.Module):
-    """Pre-norm attention + FFN residual block with AdaLN (the NAR's norm)."""
+    """Pre-norm attention + FFN residual block, with ``ln`` (LayerNorm, eps
+    1e-5, the AR's) or ``adaln`` (level-conditioned, the NAR's) norms and
+    dropout after the attention, inside the FFN and after it."""
 
-    def __init__(self, d_model: int, n_heads: int, n_levels: int, dtype=None):
+    def __init__(self, d_model: int, n_heads: int, p_dropout: float = 0.0,
+                 causal: bool = False, norm_type: str = "ln", n_levels: int | None = None,
+                 dtype=None):
         super().__init__()
-        self.norm_attn = AdaLN(d_model, n_levels)
-        self.norm_ffn = AdaLN(d_model, n_levels)
-        self.attn = Attention(d_model, n_heads, dtype=dtype)
+        if norm_type == "adaln":
+            if n_levels is None:
+                raise ValueError("adaln needs n_levels")
+            self.norm_attn = AdaLN(d_model, n_levels)
+            self.norm_ffn = AdaLN(d_model, n_levels)
+        elif norm_type == "ln":
+            self.norm_attn = LayerNorm(d_model, eps=1e-5)
+            self.norm_ffn = LayerNorm(d_model, eps=1e-5)
+        else:
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.norm_type, self.p_dropout = norm_type, p_dropout
+        self.attn = Attention(d_model, n_heads, causal, dtype=dtype)
         self.ffn = FeedForward(d_model, dtype=dtype)
 
-    def forward(self, x, mask, level):
+    def _norm(self, norm, x, level):
+        return norm(x, level) if self.norm_type == "adaln" else norm(x)
+
+    def forward(self, x, mask, level, seed: int | None = None):
+        """``seed`` turns dropout on (None: deterministic)."""
+        drop = _no_dropout
+        if seed is not None and self.p_dropout > 0:
+            drop = Dropout(self.p_dropout, seed, x.device)
         m = mask[..., None].to(x.dtype)
-        h = self.attn(self.norm_attn(x, level) * m, mask)
+        h = drop(self.attn(self._norm(self.norm_attn, x, level) * m, mask))
         x = (x + h) * m
-        h = self.ffn(self.norm_ffn(x, level) * m)
+        h = drop(self.ffn(self._norm(self.norm_ffn, x, level) * m, drop))
         return (x + h) * m
 
 
@@ -184,28 +245,35 @@ def packed_layout(text_mask, prom_mask, resp_mask):
 
 
 class Base(nn.Module):
-    """The shared trunk, non-causal AdaLN form (the NAR's): embeds the three
-    segments, runs ``n_layers`` blocks, projects to ``n_tokens`` logits."""
+    """The shared trunk: embeds the three segments, runs ``n_layers`` blocks,
+    projects to ``n_resp_tokens`` logits (``n_tokens``, plus the stop token
+    with ``use_stop_token``).  Defaults are the JAX constructor's."""
 
     def __init__(self, n_tokens: int, d_model: int = 512, n_heads: int = 8,
-                 n_layers: int = 12, n_resp_levels: int = 7,
-                 n_prom_levels: int = 8, dtype=torch.bfloat16):
+                 n_layers: int = 12, p_dropout: float = 0.1, causal: bool = False,
+                 n_resp_levels: int = 1, use_stop_token: bool = False, norm_type: str = "ln",
+                 n_prom_levels: int = 8, remat: bool = True, dtype=torch.bfloat16):
         super().__init__()
         self.d_model, self.n_layers, self.dtype = d_model, n_layers, dtype
+        self.p_dropout, self.remat = p_dropout, remat
+        self.n_resp_tokens = n_tokens + (1 if use_stop_token else 0)
         self.text_emb = Embed(n_tokens, d_model)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_tokens, d_model)
-        self.resps_emb = MultiEmbedding(n_resp_levels, n_tokens, d_model)
+        self.resps_emb = MultiEmbedding(n_resp_levels, self.n_resp_tokens, d_model)
         self.sep = nn.Parameter(torch.zeros(d_model))
         for i in range(n_layers):
-            self.add_module(f"block_{i}", PrenormBlock(d_model, n_heads, n_resp_levels, dtype=dtype))
-        self.classifier = Dense(d_model, n_tokens, dtype=torch.float32)
+            self.add_module(f"block_{i}", PrenormBlock(d_model, n_heads, p_dropout, causal,
+                                                       norm_type, n_resp_levels, dtype=dtype))
+        self.classifier = Dense(d_model, self.n_resp_tokens, dtype=torch.float32)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
 
     def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask,
-                resp_level_mask=None, quant_levels=None):
-        """Logits (B, T, n_tokens) over the merged layout."""
+                resp_level_mask=None, quant_levels=None, generator=None):
+        """Logits (B, T, n_resp_tokens) over the merged layout.  A
+        ``generator`` turns dropout on (one seed per block is drawn from it);
+        without one the forward is deterministic."""
         B = text.shape[0]
         text_e = self.text_emb(text)
         proms_e = self.proms_emb(proms)
@@ -217,10 +285,67 @@ class Base(nn.Module):
         x = x + sinusoidal_embedding(pos, self.d_model)
         x = x.to(self.dtype) * mask[..., None].to(self.dtype)
         level = quant_levels if quant_levels is not None else torch.zeros(B, dtype=torch.long, device=text.device)
-        for block in self.blocks():
-            x = block(x, mask, level)
+        seeds = [None] * self.n_layers
+        if generator is not None and self.p_dropout > 0:
+            seeds = torch.randint(2**62, (self.n_layers,), generator=generator,
+                                  device=generator.device).tolist()
+        remat = self.remat and torch.is_grad_enabled()
+        for block, seed in zip(self.blocks(), seeds):
+            x = (checkpoint(block, x, mask, level, seed, use_reentrant=False) if remat
+                 else block(x, mask, level, seed))
         logits = self.classifier(x.float())
         return logits * mask[..., None]
+
+
+IGNORE_INDEX = -100
+
+
+def _shift_left(x):
+    """x[:, 1:] with a zero column appended."""
+    return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+
+
+def build_targets(text, text_mask, prom_mask, targ, resp_mask, *, resp_loss_only: bool,
+                  shift: bool, stop_token: int | None):
+    """The (B, T) targets over the merged layout, ``IGNORE_INDEX`` where no
+    loss is taken.
+
+    - ``resp_loss_only`` (NAR): only response slots, slot j targets
+      ``targ[j]``;
+    - otherwise (AR, ``shift``): text slot j targets ``text[j+1]`` (the last
+      valid one is ignored), the prompt is ignored, the sep before the
+      responses targets ``targ[0]``, response slot j targets ``targ[j+1]``
+      and the last valid one ``stop_token``."""
+    B, Tt = text.shape
+    Tp = prom_mask.shape[1]
+    ig = torch.full((B, 1), IGNORE_INDEX, dtype=torch.long, device=text.device)
+    targ = targ.long()
+    if resp_loss_only:
+        t_text, t_prom = ig.expand(B, Tt), ig.expand(B, Tp)
+        sep2 = ig
+        t_resp = torch.where(resp_mask > 0, targ, IGNORE_INDEX)
+    else:
+        if not shift or stop_token is None:
+            raise ValueError("the AR targets need shift=True and a stop token")
+        t_text = torch.where((text_mask * _shift_left(text_mask)) > 0, _shift_left(text.long()),
+                             IGNORE_INDEX)
+        t_prom = ig.expand(B, Tp)
+        has_resp = resp_mask.sum(dim=1, keepdim=True) > 0
+        sep2 = torch.where(has_resp, targ[:, :1], IGNORE_INDEX)
+        is_last = (resp_mask > 0) & (_shift_left(resp_mask) == 0)
+        t_resp = torch.where(resp_mask > 0, _shift_left(targ), IGNORE_INDEX)
+        t_resp = torch.where(is_last, stop_token, t_resp)
+    return torch.cat([t_text, ig, t_prom, sep2, t_resp], dim=1)
+
+
+def masked_cross_entropy(logits, targets):
+    """Mean cross-entropy (fp32 log-softmax) over the slots whose target is
+    not ``IGNORE_INDEX``."""
+    valid = targets != IGNORE_INDEX
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, targets, 0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 def sample_categorical(logits, temperature: float = 1.0, gumbel_noise=None):

@@ -24,7 +24,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import route
-from .base import Dense, Embed, LayerNorm, MultiEmbedding, gelu, sinusoidal_embedding
+from .base import (Dense, Embed, LayerNorm, MultiEmbedding, gelu, refuse_remat_policy,
+                   sinusoidal_embedding)
 
 
 class Mlp(nn.Module):
@@ -149,10 +150,7 @@ class DiTDenoiser(nn.Module):
                  dtype=torch.bfloat16, tower_ffn_dim=None, tower_act: str = "gelu",
                  resp_pe: bool = True, remat: bool = False, remat_policy=None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue 1 item 12); "
-                "use null (whole-block recompute)")
+        refuse_remat_policy(remat_policy)
         self.d_model, self.n_layers, self.dtype, self.resp_pe = d_model, n_layers, dtype, resp_pe
         self.remat = remat
         self.text_emb = Embed(n_classes, d_model)

@@ -77,12 +77,15 @@ class Synthesizer:
             raise NotImplementedError(f"--decode {decode}: not ported yet (only maskgit is)")
         device = resolve_device(device)
         dtype = torch.bfloat16 if bf16 else torch.float32
-        first = build_model(load_meta(ar_ckpt), dtype)  # rejects what is not ported
-        nar = build_model(load_meta(nar_ckpt), dtype)
-        if not isinstance(first, DiffusionModel) or not isinstance(nar, NAR):
+        first_meta, nar_meta = load_meta(ar_ckpt), load_meta(nar_ckpt)
+        first_name, nar_name = first_meta["model"].lower(), nar_meta["model"].lower()
+        if (not first_name.startswith("diffusion") or first_name.startswith("diffusion-gaussian")
+                or not nar_name.startswith("nar")):
             raise NotImplementedError(
-                f"{ar_ckpt} + {nar_ckpt}: not ported yet (only a D3PM diffusion "
-                "bundle with a NAR bundle is)")
+                f"{ar_ckpt} ({first_name}) + {nar_ckpt} ({nar_name}): not ported yet for "
+                "serving (only a D3PM diffusion bundle with a NAR bundle is)")
+        first = build_model(first_meta, dtype)
+        nar = build_model(nar_meta, dtype)
         first_p, _, phone_symmap, _ = load_bundle(ar_ckpt)
         convert.jax_params_to_torch(first_p, first.denoiser)
         del first_p
@@ -211,8 +214,10 @@ class Synthesizer:
 
 
 def build_model(meta: dict, dtype=torch.bfloat16):
-    """Rebuild an exported architecture from ``model.json`` (registry
-    defaults: diffusion d512/8/8, nar d1024/16/12)."""
+    """Rebuild an exported architecture from ``model.json``: the registry's
+    dims (diffusion d512/8/8; ar, nar d1024/16/12; ``-half``, ``-quarter``)
+    under the bundle's own ``d_model`` / ``n_heads`` / ``n_layers``."""
+    from .models import get_model
     from .models.diffusion import DiffusionConfig
 
     name = meta["model"].lower()
@@ -224,15 +229,7 @@ def build_model(meta: dict, dtype=torch.bfloat16):
             "d_model", "n_heads", "n_layers", "timesteps", "resp_len", "text_len",
             "prom_len", "gen_len", "tower_ffn_dim", "tower_act", "resp_pe") if k in meta}
         return DiffusionModel(DiffusionConfig(n_classes=num_tokens + 1, **kw), dtype=dtype)
-    if name.startswith("nar"):
-        if "-quarter" in name:
-            dims = dict(d_model=256, n_heads=4, n_layers=12)
-        elif "-half" in name:
-            dims = dict(d_model=512, n_heads=8, n_layers=12)
-        else:
-            dims = dict(d_model=1024, n_heads=16, n_layers=12)
-        dims.update({k: meta[k] for k in ("d_model", "n_heads", "n_layers") if k in meta})
-        return NAR(num_tokens, dtype=dtype, **dims)
-    if name.startswith("ar"):
-        raise NotImplementedError(f"AR bundles ({name!r}) are not ported yet")
+    if name.startswith(("ar", "nar")):
+        dims = {k: meta[k] for k in ("d_model", "n_heads", "n_layers") if k in meta}
+        return get_model(name, num_tokens, dims, dtype=dtype)
     raise ValueError(f"unknown model family {name!r}")

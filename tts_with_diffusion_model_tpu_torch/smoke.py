@@ -16,6 +16,7 @@ raises ``SmokeError``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -218,12 +219,28 @@ def _eager_ms(fn, device, iters: int = 50, warmup: int = 5) -> float | None:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound_ms(B, Tq, Tk, H, Dh, dtype) -> tuple[float, str]:
+def work(kv_mask, Tq: int, H: int, causal: bool = False) -> tuple[int, int]:
+    """(score pairs, value pairs) this key mask needs, over every query row
+    and head: a visible (query, key) pair costs a q·k and a p·v product; a
+    row whose keys are all masked costs no q·k but averages all Tk values."""
+    from .ops.train_flash_attention import visible
+
+    vis = visible(kv_mask, Tq, causal).expand(-1, -1, Tq, -1)
+    per_row = vis.sum(dim=-1)
+    qk = int(per_row.sum())
+    pv = qk + int((per_row == 0).sum()) * kv_mask.shape[1]
+    return qk * H, pv * H
+
+
+def bound_ms(B, Tq, Tk, H, Dh, dtype, pairs: tuple[int, int] | None = None) -> tuple[float, str]:
     """Least time on an H100 SXM: each input read once, the output written
-    once, against 4·B·H·Tq·Tk·Dh operations at the type's peak."""
+    once, against the products at the type's peak: 2·Dh operations per
+    (score pair + value pair), ``pairs`` from ``work`` (by default every
+    pair: 4·B·H·Tq·Tk·Dh)."""
     el = torch.finfo(dtype).bits // 8
     nbytes = (B * Tq * H * Dh * 2 + 2 * B * Tk * H * Dh) * el + B * Tk * 4
-    flops = 4 * B * H * Tq * Tk * Dh
+    qk, pv = pairs if pairs is not None else (B * H * Tq * Tk,) * 2
+    flops = 2 * Dh * (qk + pv)
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -253,7 +270,8 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
         bias = torch.where(mask > 0, 0.0, attn_ops.NEG_INF).to(dtype)[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias), device)
-        res["bound_ms"], res["bound_by"] = bound_ms(B, site.Tq, site.Tk, site.H, site.Dh, dtype)
+        res["bound_ms"], res["bound_by"] = bound_ms(B, site.Tq, site.Tk, site.H, site.Dh, dtype,
+                                                    work(mask, site.Tq, site.H))
         res["vs_library"] = res["ms"] / res["library_ms"]
         res["vs_bound"] = res["ms"] / res["bound_ms"]
     # the comparison's own launches are not the main path's
@@ -261,13 +279,34 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
     return res
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """Matmuls in full fp32 inside the block (the plain version is the
+    reference; TF32 would round its products)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _check_and_log(site: Site, B: int, dtype, device, seed: int, timed: bool,
+                   count: int) -> dict:
+    r = check_site(site, B, dtype, device, seed, time_it=timed)
+    r["count"] = count
+    log(json.dumps(r))
+    if "vs_library" in r:
+        log(f"ratio: masked_attention {r['site']} {r['Tq']}x{r['Tk']} (B={B}): "
+            f"kernel/SDPA {r['vs_library']:.3f}, kernel/bound {r['vs_bound']:.2f}")
+    return r
+
+
 def phase_kernel_check(device, dit_cfg, nar_dims: dict, steps: int, B: int,
                        prompt_buckets, timed_bucket: int, seed: int = 0) -> list[dict]:
     """Every site at every prompt bucket, fp32 and bf16; times at the main
     path's bucket in bf16."""
-    old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
-    try:
+    with full_fp32():
         results, seen = [], set()
         for pb in prompt_buckets:
             for site in attention_sites(dit_cfg, nar_dims, steps, pb):
@@ -277,20 +316,21 @@ def phase_kernel_check(device, dit_cfg, nar_dims: dict, steps: int, B: int,
                 seen.add(key)
                 for dtype in (torch.float32, torch.bfloat16):
                     timed = pb == timed_bucket and dtype == torch.bfloat16
-                    r = check_site(site, B, dtype, device, seed, time_it=timed)
-                    r["count"] = site.count if pb == timed_bucket else 0
-                    results.append(r)
-                    log(json.dumps(r))
-                    if "vs_library" in r:
-                        log(f"ratio: masked_attention {r['site']} {r['Tq']}x{r['Tk']}: "
-                            f"kernel/SDPA {r['vs_library']:.3f}, kernel/bound {r['vs_bound']:.2f}")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+                    results.append(_check_and_log(site, B, dtype, device, seed, timed,
+                                                  site.count if pb == timed_bucket else 0))
     return results
 
 
-def kernel_summary(results: list[dict], launches: int) -> dict:
-    """The kernel's line: per-batch sums over the main path's timed sites."""
+def phase_site_check(device, site: Site, B: int, seed: int = 0) -> list[dict]:
+    """One site at batch ``B``, fp32 and bf16, timed in bf16."""
+    with full_fp32():
+        return [_check_and_log(site, B, dtype, device, seed, dtype == torch.bfloat16, site.count)
+                for dtype in (torch.float32, torch.bfloat16)]
+
+
+def batch_totals(results: list[dict]) -> dict:
+    """Σ launches × time over the timed sites of one batch: the kernel, the
+    plain version, SDPA and the bound (with what bounds most of it)."""
     timed = [r for r in results if "ms" in r and r["count"]]
 
     def total(key):
@@ -300,20 +340,33 @@ def kernel_summary(results: list[dict], launches: int) -> dict:
 
     bytes_ms = sum(r["bound_ms"] * r["count"] for r in timed if r["bound_by"] == "bytes")
     ops_ms = sum(r["bound_ms"] * r["count"] for r in timed if r["bound_by"] == "operations")
-    return {
+    return {"launches": sum(r["count"] for r in timed), "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": total("library_ms")}
+
+
+def kernel_summary(results: list[dict], launches: int, eval_results=None,
+                   eval_launches: int | None = None) -> dict:
+    """The kernel's line: per-batch sums over the main path's timed sites;
+    with ``eval_results``, also per NAR val-loss eval batch (``paths``)."""
+    serving = batch_totals(results)
+    line = {
         "name": "masked_attention",
         "route": "cuda",
         "source": "tts_with_diffusion_model_tpu_torch/csrc/masked_attention.cu",
         "replaces": REPLACES,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results if r["dtype"] == "bfloat16"),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": total("library_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r in [*results, *(eval_results or [])]
+                           if r["dtype"] == "bfloat16"),
+        **{k: serving[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per": "one batch call of the main path: sum over its attention sites of launches x time",
     }
+    if eval_results is not None:
+        line["paths"] = {"serving": dict(serving, launches_run=launches),
+                         "nar eval": dict(batch_totals(eval_results),
+                                          launches_run=eval_launches)}
+    return line
 
 
 # ---------------- 4. the slice ----------------

@@ -4,11 +4,14 @@ the CPU tests rehearse them at a tiny size with the plain versions).
 
 5. train kernel — the training attention kernel against its plain version,
    forward O and dq / dk / dv, fp32 and bf16, at every attention site of a
-   D3PM train step and at the AR's causal packed shape, with device times
-   beside the plain version's, SDPA's and the bound;
-6. train       — the train CLI's ``main`` on ``config/gen4c/diffusion.yml``
-   over a seeded synthetic corpus, with the launch counts per step, the
-   checkpoint and the val-loss eval checked.
+   train step of the gen4c recipes (the D3PM's five sites, the NAR's and
+   the AR's packed self-attention, ar-quarter's) and of the AR's val-loss
+   eval, with device times beside the plain version's, SDPA's and the
+   bound;
+6. train       — the train CLI's ``main`` on a gen4c recipe
+   (``config/gen4c/{diffusion,nar,ar}.yml``) over a seeded synthetic
+   corpus, with the launch counts per step, the checkpoint and the
+   val-loss eval checked.
 """
 
 from __future__ import annotations
@@ -27,12 +30,14 @@ import torch
 from .ops import masked_attention as serve_ops
 from .ops import train_flash_attention as train_ops
 from .smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, REPO, SMOKE_DIR, TOL, _eager_ms, _time_ms,
-                    check, default_symmap, log)
+                    check, default_symmap, full_fp32, log, work)
 
 REPLACES = "tts_with_diffusion_model_tpu/ops/attention.py:59"
 SOURCE = "tts_with_diffusion_model_tpu_torch/csrc/train_flash_attention.cu"
 TRAIN_YAML = REPO / "config" / "gen4c" / "diffusion.yml"
+NAR_YAML = REPO / "config" / "gen4c" / "nar.yml"
 AR_YAML = REPO / "config" / "gen4c" / "ar.yml"
+AR_QUARTER_YAML = REPO / "config" / "gen4c" / "ar_quarter.yml"
 
 
 # ---------------- the corpus ----------------
@@ -62,8 +67,10 @@ def write_train_corpus(root: Path, n_speakers: int = 8, n_utts: int = 12, seed: 
 
 @dataclasses.dataclass
 class TrainSite:
-    """One differentiated attention call site, with its forward and
-    backward launches per train step."""
+    """One attention call site of the training kernel, with its forward and
+    backward launches per train step of ``path`` (the recipe it belongs
+    to); ``fused``: q, k and v are strided views of one (B, T, 3, H, Dh)
+    projection, as the AR and NAR make them."""
     name: str
     B: int
     Tq: int
@@ -73,6 +80,8 @@ class TrainSite:
     causal: bool
     fwd: int
     bwd: int
+    path: str = "d3pm"
+    fused: bool = False
 
 
 def train_attention_sites(model, B: int, resp_bucket: int) -> list[TrainSite]:
@@ -93,23 +102,107 @@ def train_attention_sites(model, B: int, resp_bucket: int) -> list[TrainSite]:
     ]
 
 
+def recipe(yaml: Path):
+    """A recipe's config and its model, the model's parameters on the meta
+    device (shapes only, nothing allocated)."""
+    from .config import Config
+    from .train.train import build_model
+
+    cfg = Config.from_cli([f"yaml={yaml}"])
+    with torch.device("meta"):
+        return cfg, build_model(cfg)
+
+
+def packed_len(cfg, eval_bucket: bool = False) -> int:
+    """Slots of the AR/NAR packed layout: text + sep + prompt + sep +
+    response.  Training batches take the largest length buckets; the eval
+    loaders pad to the ``max_*_len`` bucket."""
+    if eval_bucket:
+        return cfg.max_text_len + 1 + cfg.max_prom_len + 1 + cfg.max_resp_len
+    return cfg.max_text_len + 1 + max(cfg.prom_len_buckets) + 1 + max(cfg.resp_len_buckets)
+
+
+def packed_attention_sites(model, cfg, name: str, path: str) -> list[TrainSite]:
+    """The AR's or NAR's one attention site per block: the packed
+    self-attention (causal for the AR), 2 × n_layers forwards per step with
+    remat and n_layers backwards."""
+    base = model.base
+    attn = base.blocks()[0].attn
+    L, T = base.n_layers, packed_len(cfg)
+    return [TrainSite(name, cfg.batch_size, T, T, attn.n_heads, attn.d_model // attn.n_heads,
+                      attn.causal, L * (2 if base.remat else 1), L, path=path, fused=True)]
+
+
+def step_sites(model, cfg) -> list[TrainSite]:
+    """The training kernel's sites in one train step of ``model``."""
+    if hasattr(model, "denoiser"):
+        return train_attention_sites(model, cfg.batch_size, min(cfg.resp_len_buckets))
+    family = "ar" if model.base.blocks()[0].attn.causal else "nar"
+    name = "AR packed causal self" if family == "ar" else "NAR packed self"
+    return packed_attention_sites(model, cfg, name, family)
+
+
+def eval_attentions(model) -> tuple[str, int]:
+    """Which kernel the val-loss eval (under ``no_grad``) runs, and its
+    launches per eval batch: the serving kernel for non-causal attention,
+    the training kernel's forward for the AR's causal one."""
+    if hasattr(model, "denoiser"):
+        den = model.denoiser
+        return "masked_attention", den.text_tower.n_layers + den.prom_tower.n_layers + 3 * den.n_layers
+    base = model.base
+    causal = base.blocks()[0].attn.causal
+    return ("train_flash_attention" if causal else "masked_attention"), base.n_layers
+
+
+def nar_eval_site() -> tuple[int, "Site"]:
+    """(B, site) of the serving kernel in the NAR's val-loss eval: the
+    packed self-attention at the eval loader's bucket, B =
+    ``eval_batch_size``, one launch per block per eval batch."""
+    from .smoke import Site
+
+    cfg, model = recipe(NAR_YAML)
+    attn = model.base.blocks()[0].attn
+    T = packed_len(cfg, eval_bucket=True)
+    return cfg.eval_batch_size, Site("NAR eval self", T, T, attn.n_heads,
+                                     attn.d_model // attn.n_heads, model.base.n_layers)
+
+
 def ar_causal_site() -> TrainSite:
     """The AR's causal packed self-attention as ``config/gen4c/ar.yml``
-    shapes it (text + sep + prompt bucket + sep + response bucket, the AR
-    registry width d1024 / 16 heads); not on this slice's path."""
-    from .config import Config
+    shapes it (text + sep + prompt bucket + sep + response bucket)."""
+    cfg, model = recipe(AR_YAML)
+    return step_sites(model, cfg)[0]
 
-    cfg = Config.from_cli([f"yaml={AR_YAML}"])
-    T = cfg.max_text_len + 1 + max(cfg.prom_len_buckets) + 1 + max(cfg.resp_len_buckets)
-    return TrainSite("AR packed causal self", cfg.batch_size, T, T, 16, 64, True, 0, 0)
+
+def packed_sites() -> list[TrainSite]:
+    """The training kernel's sites of the NAR and AR recipes: their train
+    steps, ar-quarter's (a recipe ``chip_smoke.py`` does not run), and the
+    AR's val-loss eval forward at the eval loader's bucket (B =
+    ``eval_batch_size``; path "ar eval", whose step is one eval batch)."""
+    nar_cfg, nar = recipe(NAR_YAML)
+    ar_cfg, ar = recipe(AR_YAML)
+    q_cfg, quarter = recipe(AR_QUARTER_YAML)
+    ar_site = step_sites(ar, ar_cfg)[0]
+    T = packed_len(ar_cfg, eval_bucket=True)
+    return [*step_sites(nar, nar_cfg), ar_site,
+            *packed_attention_sites(quarter, q_cfg, "ar-quarter packed causal self",
+                                    "ar-quarter"),
+            dataclasses.replace(ar_site, name="AR eval causal self", B=ar_cfg.eval_batch_size,
+                                Tq=T, Tk=T, fwd=eval_attentions(ar)[1], bwd=0, path="ar eval")]
 
 
 def _site_inputs(s: TrainSite, dtype, device, seed):
     """q, k, v, dO and a key mask with a ragged prefix, holes and one
-    all-masked row (B >= 4)."""
+    all-masked row (B >= 4); q, k, v views of one fused tensor when
+    ``s.fused``."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(s.B, T, s.H, s.Dh, generator=g).to(dtype).to(device)
-                   for T in (s.Tq, s.Tk, s.Tk, s.Tq))
+    if s.fused:
+        qkv = torch.randn(s.B, s.Tq, 3, s.H, s.Dh, generator=g).to(dtype).to(device)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(s.B, s.Tq, s.H, s.Dh, generator=g).to(dtype).to(device)
+    else:
+        q, k, v, do = (torch.randn(s.B, T, s.H, s.Dh, generator=g).to(dtype).to(device)
+                       for T in (s.Tq, s.Tk, s.Tk, s.Tq))
     mask = torch.ones(s.B, s.Tk)
     if s.B > 1:
         mask[1, int(torch.randint(1, s.Tk + 1, (1,), generator=g)):] = 0
@@ -125,17 +218,6 @@ def _fwd_bwd(fn, q, k, v, km, causal, do):
     q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
     o = fn(q, k, v, km, causal)
     return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
-
-
-def work(s: TrainSite, km) -> tuple[int, int]:
-    """(score pairs, value pairs) this mask needs, over every head: a
-    visible (query, key) pair costs a q·k and a p·v product; a row whose
-    keys are all masked costs no q·k but averages all Tk values."""
-    vis = train_ops.visible(km, s.Tq, s.causal)
-    per_row = vis.sum(dim=-1)
-    qk = int(per_row.sum())
-    pv = qk + int((per_row == 0).sum()) * s.Tk
-    return qk * s.H, pv * s.H
 
 
 def train_bound_ms(s: TrainSite, dtype, qk: int, pv: int) -> dict:
@@ -186,7 +268,7 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
         torch.cuda.synchronize()
     res = {"site": s.name, "B": s.B, "Tq": s.Tq, "Tk": s.Tk, "H": s.H, "Dh": s.Dh,
            "causal": s.causal, "dtype": str(dtype).replace("torch.", ""),
-           "fwd": s.fwd, "bwd": s.bwd}
+           "fwd": s.fwd, "bwd": s.bwd, "path": s.path, "fused": s.fused}
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
         check(bool(torch.isfinite(a).all()), f"{s.name} {dtype}: non-finite {name}")
         err = (a.float() - b.float()).abs().max().item()
@@ -222,7 +304,7 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
         # tensor-map encoding) beside the device time above
         res["eager_ms_fwd"] = _eager_ms(timings["ms_fwd"], device, iters=20)
         res["eager_ms_bwd"] = _eager_ms(timings["ms_bwd"], device, iters=20)
-        qk, pv = work(s, km)
+        qk, pv = work(km, s.Tq, s.H, s.causal)
         res.update(train_bound_ms(s, dtype, qk, pv))
         lib_bwd = res["library_ms_fwdbwd"] - res["library_ms_fwd"]
         res["vs_library_fwd"] = res["ms_fwd"] / res["library_ms_fwd"]
@@ -235,9 +317,7 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
 
 def phase_train_kernel_check(device, sites: list[TrainSite], seed: int = 0) -> list[dict]:
     """Every site in fp32 and bf16; times in bf16, the training dtype."""
-    old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
-    try:
+    with full_fp32():
         results = []
         for s in sites:
             for dtype in (torch.float32, torch.bfloat16):
@@ -245,11 +325,10 @@ def phase_train_kernel_check(device, sites: list[TrainSite], seed: int = 0) -> l
                 results.append(r)
                 log(json.dumps(r))
                 if "vs_library_fwd" in r:
-                    log(f"ratio: train_flash_attention {r['site']} {r['Tq']}x{r['Tk']}: kernel/SDPA "
-                        f"fwd {r['vs_library_fwd']:.3f} bwd {r['vs_library_bwd']:.3f}, kernel/bound "
-                        f"fwd {r['vs_bound_fwd']:.2f} bwd {r['vs_bound_bwd']:.2f}")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+                    log(f"ratio: train_flash_attention {r['site']} {r['Tq']}x{r['Tk']} "
+                        f"(B={r['B']}): kernel/SDPA fwd {r['vs_library_fwd']:.3f} bwd "
+                        f"{r['vs_library_bwd']:.3f}, kernel/bound fwd {r['vs_bound_fwd']:.2f} "
+                        f"bwd {r['vs_bound_bwd']:.2f}")
     return results
 
 
@@ -282,10 +361,9 @@ def per_step(r: dict, key: str) -> float | None:
     return r["fwd"] * f + r["bwd"] * (fb - f)
 
 
-def train_kernel_summary(results: list[dict], fwd: int, bwd: int, run_launches: int) -> dict:
-    """The training kernel's line: per-train-step sums over the timed sites
-    of the main path."""
-    timed = [r for r in results if "ms_fwd" in r and (r["fwd"] or r["bwd"])]
+def _step_totals(timed: list[dict]) -> dict:
+    """Σ over sites of launches × time for one train step: the kernel, the
+    plain version, SDPA and the bound (with what bounds most of it)."""
 
     def total(key):
         vals = [per_step(r, key) for r in timed]
@@ -295,23 +373,48 @@ def train_kernel_summary(results: list[dict], fwd: int, bwd: int, run_launches: 
     for r in timed:
         bound[r["fwd_bound_by"]] += r["fwd"] * r["fwd_bound_ms"]
         bound[r["bwd_bound_by"]] += r["bwd"] * r["bwd_bound_ms"]
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": sum(bound.values()) if timed else None,
+            "bound_by": "bytes" if bound["bytes"] >= bound["operations"] else "operations",
+            "library_ms": total("library_ms")}
+
+
+def train_kernel_summary(results: list[dict], runs: list[tuple[str, int, int, int]],
+                         eval_runs=()) -> dict:
+    """The training kernel's line.  ``runs``: (path, forward and backward
+    launches per step, launches counted over the path's run) for each train
+    path driven; each path gets its per-step sums over its timed sites, and
+    the top level sums one step of every path.  ``eval_runs``, alike per
+    eval batch, are listed under ``paths`` but not summed."""
+    paths = {}
+    for path, fwd, bwd, run_launches in [*runs, *eval_runs]:
+        timed = [r for r in results if r["path"] == path and "ms_fwd" in r and (r["fwd"] or r["bwd"])]
+        paths[path] = {"launches": fwd + bwd, "launches_fwd": fwd, "launches_bwd": bwd,
+                       "launches_run": run_launches, **_step_totals(timed)}
+    trained = [paths[r[0]] for r in runs]
+
+    def total(key):
+        vals = [p[key] for p in trained]
+        return None if not vals or any(v is None for v in vals) else sum(vals)
+
+    ops = sum(p["bound_ms"] or 0.0 for p in trained if p["bound_by"] == "operations")
+    nbytes = sum(p["bound_ms"] or 0.0 for p in trained if p["bound_by"] == "bytes")
     return {
         "name": "train_flash_attention",
         "route": "cuda",
         "source": SOURCE,
         "replaces": REPLACES,
-        "launches": fwd + bwd,
-        "launches_fwd": fwd,
-        "launches_bwd": bwd,
-        "launches_run": run_launches,
+        "launches": sum(p["launches"] for p in trained),
+        "launches_run": sum(p["launches_run"] for p in paths.values()),
         "max_abs_err": max(r["max_abs_err"] for r in results if r["dtype"] == "bfloat16"),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
-        "bound_ms": sum(bound.values()) if timed else None,
-        "bound_by": "bytes" if bound["bytes"] >= bound["operations"] else "operations",
+        "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if nbytes >= ops else "operations",
         "library_ms": total("library_ms"),
-        "per": "one D3PM train step (B=32, bucket 192, remat): sum over its attention sites "
-               "of forward and backward launches x time",
+        "per": "one train step of each path (" + ", ".join(r[0] for r in runs) + "): sum over its "
+               "attention sites of forward and backward launches x time",
+        "paths": paths,
     }
 
 
@@ -344,25 +447,27 @@ def profile_train_step(engines, cfg) -> dict:
     return profile_call(lambda: engines.step(batch), "train step")
 
 
-def phase_train(device, seed: int = 0, steps: int = 8, overrides=(), corpus=None) -> dict:
-    """``train.main`` on ``config/gen4c/diffusion.yml`` with its paths pointed
-    into ``build/smoke/`` and ``steps`` steps, checkpoint and eval at the
-    last; then the checks.  ``overrides`` (``key=value``) shrink the model
-    for CPU rehearsals; ``corpus`` = (speakers, utterances, frames, phones)."""
+def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, overrides=(),
+                corpus=None) -> dict:
+    """``train.main`` on the recipe ``yaml`` with its paths pointed into
+    ``build/smoke/<recipe>`` and ``steps`` steps, checkpoint and eval at
+    the last; then the checks.  ``overrides`` (``key=value``) shrink the
+    model for CPU rehearsals; ``corpus`` = (speakers, utterances, frames,
+    phones)."""
     from .config import Config
     from .train import train as train_cli
     from .train import trainer
 
-    data, out = SMOKE_DIR / "train_data", SMOKE_DIR / "train"
+    data, out = SMOKE_DIR / "train_data", SMOKE_DIR / f"train_{Path(yaml).stem}"
     for d in (data, out):
         shutil.rmtree(d, ignore_errors=True)
     n_spk, n_utt, frames, phones = corpus or (8, 12, (60, 168), (3, 50))
     write_train_corpus(data, n_spk, n_utt, seed, frames, phones)
-    argv = [f"yaml={TRAIN_YAML}", f"data_dirs=[{data}]", f"log_root={out / 'logs'}",
+    argv = [f"yaml={yaml}", f"data_dirs=[{data}]", f"log_root={out / 'logs'}",
             f"ckpt_root={out / 'ckpts'}", f"max_iter={steps}", f"eval_every={steps}",
             f"save_ckpt_every={steps}", *overrides]
     cfg = Config.from_cli(argv)
-    log(f"train: {' '.join(argv[1:])}")
+    log(f"train: {' '.join(argv)}")
 
     fn, serve = train_ops.train_flash_attention, serve_ops.masked_attention
     records = []
@@ -385,12 +490,12 @@ def phase_train(device, seed: int = 0, steps: int = 8, overrides=(), corpus=None
         train_logger.removeHandler(evals)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    serve_launches, serve_plain = serve.launches, serve.plain_calls
     engine = engines["model"]
+    on_card = device.type == "cuda"
 
     # launches per step against the count derived from the model's config
     bucket = min(b for b in cfg.resp_len_buckets)
-    sites = train_attention_sites(engine.module, cfg.batch_size, bucket)
+    sites = step_sites(engine.module, cfg)
     want_fwd, want_bwd = sum(s.fwd for s in sites), sum(s.bwd for s in sites)
     check(len(records) == steps, f"{len(records)} logged steps != {steps}")
     prev = (0, 0, 0)
@@ -401,22 +506,28 @@ def phase_train(device, seed: int = 0, steps: int = 8, overrides=(), corpus=None
             check(math.isfinite(stats[key]), f"step {i + 1}: {key} = {stats[key]}")
         per_step_counts.append((f - prev[0], b - prev[1], p - prev[2]))
         prev = (f, b, p)
-    if device.type == "cuda":
+    if on_card:
         check(all(c == (want_fwd, want_bwd, 0) for c in per_step_counts),
               f"kernel launches per step {per_step_counts} != ({want_fwd}, {want_bwd}, 0)")
-        check(serve_plain == 0, "the plain path ran on the card")
     else:  # the plain version stands in for every forward, remat included
         check(all(c[2] == want_fwd for c in per_step_counts),
               f"plain calls per step {[c[2] for c in per_step_counts]} != {want_fwd}")
 
-    # the val-loss eval ran, under no_grad, through the serving kernel
+    # the val-loss eval ran, under no_grad (forwards only), through the
+    # kernel that route.attend picks for the model's attention; the training
+    # kernel's eval launches are those after the last step's record
     eval_lines = [ln for ln in evals.lines if ln.startswith("Eval:")]
     check(len(eval_lines) == 2, f"{len(eval_lines)} eval lines != 2 (subtrain, val)")
-    den = engine.module.denoiser
-    per_eval_batch = den.text_tower.n_layers + den.prom_tower.n_layers + 3 * den.n_layers
-    served = serve_launches if device.type == "cuda" else serve_plain
+    eval_kernel, per_eval_batch = eval_attentions(engine.module)
+    if eval_kernel == "masked_attention":
+        served = serve.launches if on_card else serve.plain_calls
+    else:
+        check(fn.backward_launches == prev[1], "the eval ran a backward")
+        served = fn.launches - prev[0] if on_card else fn.plain_calls - prev[2]
     check(served > 0 and served % per_eval_batch == 0,
-          f"eval attention calls {served} are not a positive multiple of {per_eval_batch}")
+          f"eval {eval_kernel} calls {served} are not a positive multiple of {per_eval_batch}")
+    if on_card:
+        check(serve.plain_calls == fn.plain_calls == 0, "a plain version ran on the card")
 
     # the weights moved, and the checkpoint reloads into a fresh engine
     init = train_cli.build_model(cfg, device)
@@ -424,6 +535,7 @@ def phase_train(device, seed: int = 0, steps: int = 8, overrides=(), corpus=None
     moved = max((a - b).abs().max().item() for a, b in
                 zip(engine.module.parameters(), init.parameters()))
     ema_moved = max((a - b).abs().max().item() for a, b in zip(engine.ema, init.parameters()))
+    del init
     check(moved > 0 and ema_moved > 0, f"params moved {moved}, EMA moved {ema_moved}")
     ckpt = cfg.ckpt_dir / "model" / f"step_{steps:08d}.pt"
     check(ckpt.exists(), f"no checkpoint at {ckpt}")
@@ -434,23 +546,26 @@ def phase_train(device, seed: int = 0, steps: int = 8, overrides=(), corpus=None
     opt_a, opt_b = fresh.optimizer.state_dict()["state"], engine.optimizer.state_dict()["state"]
     same = same and all(torch.equal(opt_a[i][k].cpu(), opt_b[i][k].cpu())
                         for i in opt_b for k in opt_b[i])
+    del fresh, opt_a, opt_b
     check(same, "the reloaded engine differs from the trained one")
 
     times = [r[0]["elapsed_time"] for r in records]
     p50 = float(np.median(times[1:] if len(times) > 1 else times))
     frames = cfg.batch_size * bucket
-    out_d = {"engines": engines, "cfg": cfg, "steps": steps, "wall_s": wall, "step_s": times, "p50_step_s": p50,
-             "frames_per_s": frames / p50, "peak_bytes": peak, "fwd_per_step": want_fwd,
-             "bwd_per_step": want_bwd, "run_launches": prev[0] + prev[1],
-             "eval_launches": serve_launches, "eval": eval_lines, "moved": moved,
-             "ema_moved": ema_moved, "losses": [r[0]["model.loss"] for r in records],
-             "sites": sites, "checkpoint": str(ckpt)}
-    where = "host clock around synchronised steps" if device.type == "cuda" else "cpu"
-    log(f"train: {steps} steps in {wall:.1f} s; step p50 {p50 * 1e3:.1f} ms ({where}), first "
-        f"{times[0] * 1e3:.1f} ms; {out_d['frames_per_s']:.0f} padded frames/s "
+    out_d = {"engines": engines, "cfg": cfg, "steps": steps, "wall_s": wall, "step_s": times,
+             "p50_step_s": p50, "frames_per_s": frames / p50, "peak_bytes": peak,
+             "fwd_per_step": want_fwd, "bwd_per_step": want_bwd,
+             "run_launches": prev[0] + prev[1], "eval_kernel": eval_kernel,
+             "eval_launches": served, "eval_per_batch": per_eval_batch, "eval": eval_lines,
+             "moved": moved, "ema_moved": ema_moved,
+             "losses": [r[0]["model.loss"] for r in records], "sites": sites,
+             "checkpoint": str(ckpt)}
+    where = "host clock around synchronised steps" if on_card else "cpu"
+    log(f"train {cfg.model}: {steps} steps in {wall:.1f} s; step p50 {p50 * 1e3:.1f} ms "
+        f"({where}), first {times[0] * 1e3:.1f} ms; {out_d['frames_per_s']:.0f} padded frames/s "
         f"(B={cfg.batch_size} x bucket {bucket}); peak allocated "
         f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
-    log(f"train: kernel launches per step {per_step_counts[0]} (fwd, bwd, plain) = "
-        f"{want_fwd} fwd + {want_bwd} bwd derived from the config; eval launches "
-        f"{serve_launches}; losses {[round(x, 4) for x in out_d['losses']]}")
+    log(f"train {cfg.model}: kernel launches per step {per_step_counts[0]} (fwd, bwd, plain) = "
+        f"{want_fwd} fwd + {want_bwd} bwd derived from the config; eval: {served} {eval_kernel} "
+        f"calls ({per_eval_batch} per batch); losses {[round(x, 4) for x in out_d['losses']]}")
     return out_d

@@ -2,11 +2,14 @@
 yaml=<cfg> [key=value ...]`` (counterpart of ``train/train.py`` in the JAX
 package).
 
-Builds the model from ``cfg.model`` (the ``diffusion`` family is ported),
-wraps its loss in an ``Engine`` on ``cfg.device`` (the card unless
+Builds the model from ``cfg.model`` (``diffusion*``, ``ar*``, ``nar*``),
+wraps its loss feeder in an ``Engine`` on ``cfg.device`` (the card unless
 ``device=cpu``), resumes from the latest checkpoint, and hands everything to
-the generic loop.  Eval computes the val loss under ``no_grad`` (on the
-card that runs the serving attention kernel).
+the generic loop.  Eval computes the val loss under ``no_grad`` through the
+same feeder with a generator seeded from 0, so the AR's and NAR's eval
+runs with dropout on, as the JAX package's does.  On the card a
+non-causal eval attention runs the serving kernel and a causal one the
+training kernel's forward (``ops/route.py``).
 
 Not ported yet, and rejected by name rather than ignored:
 ``eval_decode_audio``, ``profile_every``, ``zero1``, a mesh larger than
@@ -42,12 +45,13 @@ def check_supported(cfg: Config) -> None:
     }
     for name, value in unported.items():
         if value:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP queue 1 "
-                                      "item 12); the port trains on one card without it")
+            raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP queue 1, "
+                                      "\"what is left of training\"); the port trains on one "
+                                      "card without it")
     if cfg.mesh_dp not in (-1, 1) or cfg.mesh_tp != 1:
         raise NotImplementedError(
-            f"mesh_dp={cfg.mesh_dp} mesh_tp={cfg.mesh_tp} is not ported yet (ROADMAP queue 1 "
-            "item 13); the port trains on a 1x1 mesh")
+            f"mesh_dp={cfg.mesh_dp} mesh_tp={cfg.mesh_tp} is not ported yet (ROADMAP queue 1, "
+            "\"parallel/mesh.py, parallel/infer.py\"); the port trains on a 1x1 mesh")
 
 
 def build_model(cfg: Config, device=None):
@@ -76,24 +80,52 @@ def make_bucket(cfg: Config, model) -> BucketSpec:
 
 
 def make_loss_fn(cfg: Config, model):
-    """The diffusion family's loss feeder: ``loss_fn(module, batch,
-    generator)``, with ``max_train_diffusion_steps`` capping t."""
-    if not cfg.model.startswith("diffusion"):
-        raise NotImplementedError(cfg.model)
-    max_t = cfg.max_train_diffusion_steps
-    if max_t is not None:
-        max_t = min(max_t, model.config.timesteps)
+    """The per-family loss feeder ``loss_fn(module, batch, generator)`` →
+    (loss, stats).  The generator drives every draw of the step: the
+    diffusion timesteps and corruption (``max_train_diffusion_steps`` caps
+    t), the NAR's levels (uniform in [0, 7) per row) and the AR's and NAR's
+    dropout."""
+    name = cfg.model.lower()
+    if name.startswith("diffusion"):
+        max_t = cfg.max_train_diffusion_steps
+        if max_t is not None:
+            max_t = min(max_t, model.config.timesteps)
 
-    def loss_fn(module, batch, generator):
-        return module.loss(batch, generator, max_t=max_t)
+        def loss_fn(module, batch, generator):
+            return module.loss(batch, generator, max_t=max_t)
 
-    return loss_fn
+        return loss_fn
+
+    if name.startswith("ar"):
+
+        def loss_fn(module, batch, generator):
+            _, losses = module(batch["text"], batch["text_mask"], batch["proms"],
+                               batch["prom_mask"], batch["resp"], batch["resp_mask"],
+                               generator=generator)
+            return sum(losses.values()), losses
+
+        return loss_fn
+
+    if name.startswith("nar"):
+
+        def loss_fn(module, batch, generator):
+            B = batch["text"].shape[0]
+            quant_levels = torch.randint(0, 7, (B,), generator=generator,
+                                         device=batch["text"].device)
+            _, losses = module(batch["text"], batch["text_mask"], batch["proms"],
+                               batch["prom_mask"], batch["resps"], batch["resp_mask"],
+                               quant_levels, generator=generator)
+            return sum(losses.values()), losses
+
+        return loss_fn
+
+    raise NotImplementedError(name)
 
 
 def init_params(cfg: Config, model) -> None:
     """Seeded weights from ``cfg.seed`` (drawn on the CPU, so the same on
-    every device)."""
-    init_seeded(model.denoiser, cfg.seed)
+    every device): the diffusion family's denoiser, or the whole AR / NAR."""
+    init_seeded(getattr(model, "denoiser", model), cfg.seed)
 
 
 def load_engines(cfg: Config | None = None, model=None):
