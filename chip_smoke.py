@@ -3,18 +3,22 @@
     python3 chip_smoke.py [--zoo] [--seed 0] [--repeats 3] [--profile]
 
 Drives the port's paths at full width: D3PM MaskGIT serving (DiT → NAR →
-EnCodec) through ``Synthesizer``, and training through the train CLI's
-``main`` on the gen4c recipes ``config/gen4c/diffusion.yml``, ``nar.yml``
-and ``ar.yml`` (8 steps each over a seeded synthetic corpus, checkpoint and
-val-loss eval at the last).  Builds every CUDA kernel from the sources in
-this checkout with ``nvcc`` and counts the wgmma (HGMMA) and TMA (UTMALDG)
-instructions in each library, holds each kernel against its plain PyTorch
-version at every shape these paths give it (printing each site's
+EnCodec) through ``Synthesizer``; training through the train CLI's ``main``
+on the gen4c recipes ``config/gen4c/diffusion.yml``, ``nar.yml`` and
+``ar.yml`` (8 steps each over a seeded synthetic corpus, checkpoint and
+val-loss eval at the last); then export → serve: the D3PM and NAR runs
+exported by the export CLI (``--ema``), the bundles held bit for bit
+against the engines' EMA, and a ``Synthesizer`` over them answering the
+same requests with MaskGIT, the ancestral chain (99 denoiser calls) and the
+ancestral chain at stride 3 (33).  Builds every CUDA kernel from the
+sources in this checkout with ``nvcc`` and counts the wgmma (HGMMA) and TMA
+(UTMALDG) instructions in each library, holds each kernel against its plain
+PyTorch version at every shape these paths give it (printing each site's
 kernel/SDPA and kernel/bound ratios), checks that the training backward is
 deterministic, and checks that each path launched its kernels the number
-of times its config says.  Weights are drawn from
-``--seed`` unless ``--zoo`` loads the committed serving bundles.  Prints each
-phase's seconds as it goes; the last lines are the kernels' JSON, the card's
+of times its config says.  Weights are drawn from ``--seed`` unless
+``--zoo`` loads the committed serving bundles.  Prints each phase's
+seconds as it goes; the last lines are the kernels' JSON, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when CUDA is unavailable or any phase fails.
 """
@@ -41,7 +45,7 @@ def main() -> int:
 
     try:
         import torch
-        from tts_with_diffusion_model_tpu_torch import smoke, smoke_train
+        from tts_with_diffusion_model_tpu_torch import smoke, smoke_export, smoke_train
     except ImportError as e:
         print(f"chip_smoke: FAILED: cannot import the port ({e})", file=sys.stderr)
         return 2
@@ -86,7 +90,7 @@ def main() -> int:
     del sl
     # each recipe with the kernel-2 launches per step its config gives
     # (remat: every block's forward again in the backward)
-    runs, eval_runs, nar_eval_launches = [], [], None
+    runs, eval_runs, nar_eval_launches, argvs = [], [], None, {}
     for name, yaml, want in (("train", smoke_train.TRAIN_YAML, (52, 28)),
                              ("train nar", smoke_train.NAR_YAML, (24, 12)),
                              ("train ar", smoke_train.AR_YAML, (24, 12))):
@@ -103,13 +107,32 @@ def main() -> int:
                   f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated "
                   f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
         runs.append((path, tr["fwd_per_step"], tr["bwd_per_step"], tr["run_launches"]))
+        argvs[path] = tr["argv"]
         if path == "nar":
             nar_eval_launches = tr["eval_launches"]
         elif path == "ar":  # the training kernel's forward under no_grad
             eval_runs.append(("ar eval", tr["eval_per_batch"], 0, tr["eval_launches"]))
         del tr
         torch.cuda.empty_cache()
-    kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches),
+    # the card-trained D3PM and NAR, exported at step 8 and served three ways
+    with smoke.phase("export -> serve"):
+        es = smoke_export.phase_export_serve(device, argvs["d3pm"], argvs["nar"], 8,
+                                             seed=args.seed, repeats=args.repeats)
+    paths = {}
+    for what, want in (("maskgit", 376), ("ancestral stride 1", 2464),
+                       ("ancestral stride 3", 880)):
+        r = es["served"][what]
+        smoke.check(r["prompt_bucket"] == 256 and r["expected"] == want,
+                    f"export {what}: prompt bucket {r['prompt_bucket']}, expected launches "
+                    f"{r['expected']} != 256, {want}")
+        smoke.log(f"export -> serve {what}: p50 {r['p50_s'] * 1e3:.1f} ms per batch of "
+                  f"{len(smoke.TEXTS)} on {info['smi']}")
+        if what != "maskgit":
+            paths[what] = smoke.path_totals(results, r["sites"], r["launches"])
+    del es
+    torch.cuda.empty_cache()
+    kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
+                                    paths),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

@@ -93,7 +93,7 @@ def test_cli_rejects_what_is_not_ported(tmp_path, capsys, case):
     (tmp_path / "ar" / "model.json").write_text('{"model": "ar", "num_tokens": 1024}')
     args = ["hello there", "ref.wav", str(tmp_path / "out.wav"), "--device", "cpu",
             "--ar-ckpt", str(tmp_path / "ar"), "--nar-ckpt", str(tmp_path / "ar")]
-    if case == "ancestral":
+    if case == "ancestral":  # ancestral decoding is ported; the AR first stage is not
         args += ["--decode", "ancestral"]
     with pytest.raises(SystemExit) as e:
         main(args)
@@ -121,7 +121,7 @@ def test_port_and_chip_smoke_import_without_jax():
     for mod in ("train.__main__", "train.train", "train.trainer", "train.engine", "config",
                 "data.dataset", "data.sampler", "utils.config_base", "utils.logging",
                 "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
-                "smoke_train"):
+                "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

@@ -1,8 +1,9 @@
 """Tests that need a CUDA card: the port's kernels against their plain
 versions (the training kernel forward and backward) at the main paths'
 shapes and at ragged edges, the training backward's determinism, a tiny
-serving batch that must go through the kernels, and a tiny train step that
-must go through the training kernel.
+serving batch (MaskGIT and ancestral) that must go through the kernels, the
+ancestral chain's per-row uniforms and tight bucket on the card, and a tiny
+train step that must go through the training kernel.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -300,3 +301,53 @@ def test_tiny_nar_and_ar_train_steps_go_through_the_training_kernel(cuda, yaml):
     # phase_train checks the launches of every step against these counts
     assert (out["fwd_per_step"], out["bwd_per_step"]) == (2 * 2, 2)
     assert out["run_launches"] == 2 * 6 and out["eval_launches"] == 2 * out["eval_per_batch"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 3])
+def test_tiny_ancestral_batch_goes_through_the_kernel(cuda, stride):
+    from tts_with_diffusion_model_tpu_torch.serve import Synthesizer
+
+    base, nar_dims = smoke.build_synthesizer(cuda, "tiny", zoo=False, seed=0, max_batch=2)
+    synth = Synthesizer(base.first, base.nar, base.codec, base.phone_symmap, device=cuda,
+                        max_batch=2, decode="ancestral", stride=stride, bf16=False)
+    requests = smoke.make_requests(2, 0.5, seed=1)
+    out = smoke.serve_and_check(synth, nar_dims, requests, "gpu test", repeats=1)
+    # T = 20: 19 process steps, 7 at stride 3
+    assert out["steps"] == (19 if stride == 1 else 7)
+    assert out["launches"] == out["expected"] == 4 + out["steps"] * 2 * 3 + 7 * 2
+
+
+@pytest.mark.gpu
+def test_row_uniforms_are_prefix_stable_across_buckets_on_the_card(cuda):
+    """A row's uniforms at the 384 serving bucket are the first 384 rows of
+    its draw at the 448 model bucket."""
+    from tts_with_diffusion_model_tpu_torch.utils.rng import RowKeys
+
+    keys = RowKeys.from_seeds([3, 4]).fold(0).fold(99)
+    tight, full = keys.uniform((384, 1025), cuda), keys.uniform((448, 1025), cuda)
+    assert torch.equal(tight, full[:, :384])
+
+
+@pytest.mark.gpu
+def test_ancestral_tight_and_full_buckets_agree_on_the_card(cuda):
+    """The full-width DiT (seeded, fp32) at stride 3: the 384 serving bucket
+    and the 448 model bucket give identical valid tokens."""
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+    from tts_with_diffusion_model_tpu_torch.models.diffusion import DiffusionConfig, DiffusionModel
+    from tts_with_diffusion_model_tpu_torch.utils.rng import RowKeys
+
+    model = DiffusionModel(DiffusionConfig(), dtype=torch.float32)
+    init_seeded(model.denoiser, 0)
+    model = model.to(cuda).eval()
+    rs = np.random.RandomState(5)
+    text = torch.from_numpy(rs.randint(1, 60, (2, 50))).to(cuda)
+    tm = torch.ones(2, 50, device=cuda)
+    tm[1, 30:] = 0
+    proms = torch.from_numpy(rs.randint(0, 1024, (2, 256, 8))).to(cuda)
+    pm = torch.ones(2, 256, device=cuda)
+    pm[0, 200:] = 0
+    keys = RowKeys.from_seeds([7, 8]).fold(0)
+    tight = model.generate(text, tm, proms, pm, keys, stride=3, resp_bucket=384)
+    full = model.generate(text, tm, proms, pm, keys, stride=3, resp_bucket=448)
+    assert torch.equal(tight[:, :350], full[:, :350])

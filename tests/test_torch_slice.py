@@ -24,7 +24,17 @@ from tts_with_diffusion_model_tpu_torch.models.diffusion import (
 from tts_with_diffusion_model_tpu_torch.models.nar import NAR, nar_generate
 from tts_with_diffusion_model_tpu_torch.utils.rng import RowKeys
 
-from torch_port_helpers import TableKeys, patch_jax_noise, perturbed, t, unflatten
+from torch_port_helpers import (  # noqa: F401 (one_thread: fixture)
+    TableKeys,
+    one_thread,
+    patch_jax_noise,
+    perturbed,
+    t,
+    unflatten,
+)
+
+#: tiny models only: one intra-op thread each
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: the tie rule (ROADMAP.md §3): where the fp32 top-2 margin of the sampled
 #: score is below this, either token counts as a match
@@ -180,35 +190,129 @@ def test_entry_points_default_to_cuda():
         smoke.build_synthesizer("cuda", "tiny", zoo=False, seed=0)
 
 
-def test_cli_end_to_end_on_tiny_bundles(tmp_path):
-    """Bundles written by the JAX package's exporter, read by the port's CLI
-    on the CPU (the codec is the committed 24 kHz one when present)."""
+@pytest.fixture(scope="module")
+def tiny_bundles(tmp_path_factory):
+    """A tiny diffusion bundle (T = 20, gen_len 40) and a tiny NAR bundle,
+    written by the JAX package's exporter."""
     from tts_with_diffusion_model_tpu.export import save_bundle
-    from tts_with_diffusion_model_tpu_torch.__main__ import main
-    from tts_with_diffusion_model_tpu_torch.audio.wavio import read_wav
 
+    root = tmp_path_factory.mktemp("bundles")
     dims = dict(d_model=32, n_heads=2, n_layers=2)
     dit_meta = dict(model="diffusion", num_tokens=1024, timesteps=20, resp_len=64, text_len=50,
                     prom_len=64, gen_len=40, **dims)
     jm = JaxDiffusion(JaxConfig(n_classes=1025, **{k: v for k, v in dit_meta.items()
                                                    if k not in ("model", "num_tokens")}))
     symmap = smoke.default_symmap()
-    save_bundle(tmp_path / "diffusion", jax.jit(jm.init)(jax.random.PRNGKey(0)),
+    save_bundle(root / "diffusion", jax.jit(jm.init)(jax.random.PRNGKey(0)),
                 dit_meta, symmap, {"spk": 0})
     jn = jax_nar.NAR(1024, remat=False, **dims)
     z = np.zeros((1, 4), np.int32)
     nar_p = jax.jit(jn.init)(jax.random.PRNGKey(1), z, z.astype(np.float32), np.zeros((1, 4, 8), np.int32),
                              z.astype(np.float32), np.zeros((1, 4, 8), np.int32),
                              z.astype(np.float32), jnp.zeros((1,), jnp.int32))
-    save_bundle(tmp_path / "nar", nar_p, dict(model="nar", num_tokens=1024, **dims), symmap, {"spk": 0})
+    save_bundle(root / "nar", nar_p, dict(model="nar", num_tokens=1024, **dims), symmap, {"spk": 0})
+    return root
+
+
+def _cli_args(bundles, out, *extra):
     ref = smoke.reference_wavs(1, 0.5, seed=12)[0]
+    return ["she said hello", str(ref), str(out), "--device", "cpu", "--seed", "3",
+            "--ar-ckpt", str(bundles / "diffusion"), "--nar-ckpt", str(bundles / "nar"), *extra]
+
+
+def test_cli_end_to_end_on_tiny_bundles(tmp_path, tiny_bundles):
+    """Bundles written by the JAX package's exporter, read by the port's CLI
+    on the CPU (the codec is the committed 24 kHz one when present)."""
+    from tts_with_diffusion_model_tpu_torch.__main__ import main
+    from tts_with_diffusion_model_tpu_torch.audio.wavio import read_wav
+
     codec = smoke.REPO / "zoo" / "encodec_24khz.npz"
     out = tmp_path / "out.wav"
-    args = ["she said hello", str(ref), str(out), "--device", "cpu", "--seed", "3",
-            "--ar-ckpt", str(tmp_path / "diffusion"), "--nar-ckpt", str(tmp_path / "nar"),
-            "--maskgit-steps", "4"]
+    args = _cli_args(tiny_bundles, out, "--maskgit-steps", "4")
     if not codec.exists():
         pytest.skip("zoo/encodec_24khz.npz is not in this checkout")
     main(args + ["--codec", str(codec)])
     wav, sr = read_wav(out)
     assert sr == 24000 and wav.shape == (1, 40 * 320) and np.isfinite(wav).all()
+
+
+@pytest.mark.parametrize("stride", [1, 3])
+def test_synthesizer_ancestral_on_tiny_bundles(tiny_bundles, stride):
+    from tts_with_diffusion_model_tpu_torch.codec.encodec import Codec
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+    from tts_with_diffusion_model_tpu_torch.ops import masked_attention as attn_ops
+    from tts_with_diffusion_model_tpu_torch.serve import Synthesizer
+
+    loaded = Synthesizer.from_bundles(tiny_bundles / "diffusion", tiny_bundles / "nar", None,
+                                      device="cpu", bf16=False, max_batch=2,
+                                      decode="ancestral", stride=stride)
+    assert loaded.decode == "ancestral" and loaded.denoiser_calls == (19 if stride == 1 else 7)
+    # the same models over a small codec (the full one's decode would dominate)
+    small = smoke.tiny_models()[3]
+    init_seeded(small, 2)
+    synth = Synthesizer(loaded.first, loaded.nar, Codec(small, "cpu"), loaded.phone_symmap,
+                        device="cpu", bf16=False, max_batch=2, decode="ancestral",
+                        stride=stride)
+    refs = smoke.reference_wavs(2, 0.5, seed=13)
+    prepared = [synth.prepare(smoke.TEXTS[i], refs[i]) for i in range(2)]
+    fn = attn_ops.masked_attention
+    fn.plain_calls = 0
+    codes, wavs = synth._device_batch(prepared, [5, 6])
+    sites = smoke.attention_sites(synth.first.config, smoke.nar_dims_of(synth.nar),
+                                  synth.denoiser_calls, synth.prompt_bucket(prepared))
+    assert fn.plain_calls == smoke.expected_launches(sites) == 4 + synth.denoiser_calls * 6 + 14
+    for c, w in zip(codes, wavs):
+        assert c.shape == (40, 8) and 0 <= c.min() and c.max() < 1024
+        assert w.shape == (40 * 320,) and np.isfinite(w).all()
+    # the same seeds give the same codes, and the first stage is the
+    # model's own ancestral chain at the serving bucket with the row keys
+    again = synth.synthesize_codes_batch(prepared, [5, 6])
+    assert all(np.array_equal(a, b) for a, b in zip(codes, again))
+    text, tm = (torch.as_tensor(np.concatenate([r[k] for r in prepared]))
+                for k in ("text", "text_mask"))
+    pb = synth.prompt_bucket(prepared)
+    proms, pm = (torch.as_tensor(np.concatenate([r[k] for r in prepared]))[:, :pb]
+                 for k in ("proms", "prom_mask"))
+    toks = synth.first.generate(text, tm, proms, pm, RowKeys.from_seeds([5, 6]).fold(0),
+                                stride=stride, resp_bucket=synth.resp_bucket)
+    np.testing.assert_array_equal(np.stack(codes)[..., 0], toks[:, :40].numpy())
+
+
+def test_cli_ancestral_stride3_end_to_end(tmp_path, tiny_bundles, monkeypatch):
+    from tts_with_diffusion_model_tpu_torch.__main__ import main
+    from tts_with_diffusion_model_tpu_torch.audio.wavio import read_wav
+
+    calls = _spy_samplers(monkeypatch)
+    out = tmp_path / "out.wav"
+    main(_cli_args(tiny_bundles, out, "--decode", "ancestral", "--stride", "3"))
+    wav, sr = read_wav(out)
+    assert sr == 24000 and wav.shape == (1, 40 * 320) and np.isfinite(wav).all()
+    assert calls == [("generate", 3)]
+
+
+@pytest.mark.parametrize("argv,want", [(["--stride", "3"], ("generate", 3)),
+                                       ([], ("generate_maskgit", None)),
+                                       (["--decode", "maskgit", "--stride", "3"],
+                                        ("generate_maskgit", None))])
+def test_cli_stride_alone_selects_ancestral(tmp_path, tiny_bundles, monkeypatch, argv, want):
+    from tts_with_diffusion_model_tpu_torch.__main__ import main
+    from tts_with_diffusion_model_tpu_torch.serve import resolve_decode
+
+    assert resolve_decode(None, 3) == "ancestral" and resolve_decode(None, 1) == "maskgit"
+    calls = _spy_samplers(monkeypatch)
+    main(_cli_args(tiny_bundles, tmp_path / "out.wav", "--maskgit-steps", "2", *argv))
+    assert calls == [want]
+
+
+def _spy_samplers(monkeypatch) -> list:
+    """Record which first-stage sampler runs (and its stride)."""
+    calls = []
+    for name in ("generate", "generate_maskgit"):
+        real = getattr(DiffusionModel, name)
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            calls.append((_name, kw.get("stride")))
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(DiffusionModel, name, spy)
+    return calls

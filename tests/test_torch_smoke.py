@@ -13,8 +13,12 @@ import torch
 from tts_with_diffusion_model_tpu_torch import smoke
 from tts_with_diffusion_model_tpu_torch.models.diffusion import DiffusionConfig
 
+from torch_port_helpers import one_thread  # noqa: F401 (fixture)
+
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
+#: every rehearsal here runs tiny models on one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_main_path_sites_launch_376_times_at_full_width():
@@ -23,6 +27,26 @@ def test_main_path_sites_launch_376_times_at_full_width():
     assert smoke.expected_launches(sites) == 4 + 12 * 8 * 3 + 7 * 12 == 376
     nar = sites[-1]
     assert (nar.Tq, nar.H, nar.Dh) == (50 + 1 + 256 + 1 + 350, 16, 64)
+
+
+@pytest.mark.parametrize("stride,calls,launches", [(1, 99, 2464), (3, 33, 880)])
+def test_ancestral_sites_launch_2464_and_880_times_at_full_width(stride, calls, launches):
+    from tts_with_diffusion_model_tpu_torch.models.diffusion import ancestral_schedule
+
+    ts, ss = ancestral_schedule(100, stride)
+    assert len(ts) == calls and ts[0] == 99 and ss[-1] == 0 and ss[:-1] == ts[1:]
+    sites = smoke.attention_sites(DiffusionConfig(), {"d_model": 1024, "n_heads": 16,
+                                                      "n_layers": 12}, calls, 256)
+    assert smoke.expected_launches(sites) == 4 + calls * 8 * 3 + 7 * 12 == launches
+    # the per-batch sums of the ancestral path reuse MaskGIT's timed sites
+    timed = [dict(site=x.name, dtype="bfloat16", max_abs_err=0.0, ms=1.0, plain_ms=2.0,
+                  library_ms=3.0, bound_ms=0.5, bound_by="bytes", count=x.count)
+             for x in smoke.attention_sites(DiffusionConfig(), {"d_model": 1024, "n_heads": 16,
+                                                                "n_layers": 12}, 12, 256)]
+    tot = smoke.path_totals(timed, sites, launches_run=7)
+    assert tot["launches"] == launches and tot["ms"] == launches and tot["launches_run"] == 7
+    line = smoke.kernel_summary(timed, 376, paths={f"ancestral stride {stride}": tot})
+    assert line["launches"] == 376 and line["paths"][f"ancestral stride {stride}"] == tot
 
 
 def test_bound_is_bytes_at_the_dit_self_attention_shape():
@@ -167,3 +191,38 @@ def test_work_counts_every_query_row_of_a_key_mask():
     ones = smoke.bound_ms(16, 770, 770, 16, 64, torch.bfloat16,
                           smoke.work(torch.ones(16, 770), 770, 16))
     assert full == ones and full[1] == "operations"
+
+
+def test_export_serve_phase_rehearsal():
+    """Tiny D3PM and NAR runs of the train phase, then the export → serve
+    phase over them: exports, bit-for-bit round trips, and three samplers
+    through the plain versions."""
+    from tts_with_diffusion_model_tpu_torch import smoke_export, smoke_train
+
+    corpus = (3, 12, (8, 30), (3, 12))
+    common = ["device=cpu", "batch_size=4", "eval_batch_size=8", "max_num_val=8", "nj=1",
+              "resp_len_buckets=[32]"]
+    d3pm = smoke_train.phase_train(CPU, steps=2, corpus=corpus, overrides=[
+        *common, "model_overrides={d_model: 32, n_heads: 2, n_layers: 2, timesteps: 8, "
+        "text_len: 50, prom_len: 64, resp_len: 48, gen_len: 40}"])
+    nar = smoke_train.phase_train(CPU, smoke_train.NAR_YAML, steps=2, corpus=corpus, overrides=[
+        *common, "model_overrides={d_model: 32, n_heads: 2, n_layers: 2}",
+        "prom_len_buckets=[64]", "max_prom_len=128", "max_resp_len=64"])
+    from tts_with_diffusion_model_tpu_torch.codec.encodec import Codec
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+
+    small = smoke.tiny_models()[3]  # the full codec's decode would dominate the test
+    init_seeded(small, 2)
+    codec = Codec(small, CPU)
+    out = smoke_export.phase_export_serve(CPU, d3pm["argv"], nar["argv"], 2, repeats=1,
+                                          ref_seconds=0.5, codec=codec)
+    assert set(out["exports"]) == {"diffusion", "nar"}
+    assert all(e["bytes"] > 0 and e["params"] > 0 for e in out["exports"].values())
+    served = out["served"]
+    assert list(served) == ["maskgit", "ancestral stride 1", "ancestral stride 3"]
+    # T = 8: 7 process steps, 3 at stride 3 (t = 7, 4, 1)
+    assert [r["steps"] for r in served.values()] == [12, 7, 3]
+    for r in served.values():
+        assert r["launches"] == 0 and r["denoiser_err"] == 0.0 and r["p50_s"] > 0
+        assert r["expected"] == 4 + r["steps"] * 2 * 3 + 7 * 2
+        assert all(c.shape == (40, 8) for c in r["codes"])

@@ -2,7 +2,7 @@
 committed zoo weights, in fp32 on the CPU at B = 1: DiT logits
 (``zoo/diffusion``), one NAR level (``zoo/nar``) at the packed serving
 length, the AR's training-forward logits (``zoo/ar``) at the gen4c packed
-length, and MaskGIT codes under injected noise.  Logits within
+length, and MaskGIT and ancestral (stride 3) codes under injected noise.  Logits within
 1e-3·max(1, max |ref|); each test prints its observed max |Δ|."""
 
 from pathlib import Path
@@ -144,3 +144,32 @@ def test_zoo_maskgit_codes_under_injected_noise(monkeypatch):
     same = float((got == ref).mean())
     print(f"zoo/diffusion MaskGIT: {same:.4f} of {RESP} codes identical")
     np.testing.assert_array_equal(got, ref)
+
+
+def test_zoo_ancestral_stride3_codes_under_injected_noise(monkeypatch):
+    """The ancestral chain at stride 3 (33 denoiser calls, t = 99, 96, …, 3)
+    at the serving bucket, the same uniform tables on both sides, keyed by
+    the process timestep."""
+    flat, meta, pm = _load("diffusion")
+    c = pm.config
+    jm = JaxDiffusion(JaxConfig(n_classes=c.n_classes, d_model=c.d_model, n_heads=c.n_heads,
+                                n_layers=c.n_layers, timesteps=c.timesteps), dtype=jnp.float32)
+    steps = list(range(c.timesteps - 1, 0, -3))
+    assert len(steps) == 33
+    text, tm, proms, prm, rs = _cond(4, TEXT, PROMPT, 33, 110)
+    tables = {(ti, 2): rs.uniform(size=(1, RESP, c.n_classes)).astype(np.float32)
+              for ti in steps}
+    patch_jax_noise(monkeypatch, jax_diffusion, tables)
+    ref = np.asarray(jm.generate(
+        {"params": unflatten(flat)["params"]}, *[jnp.asarray(a) for a in (text, tm, proms, prm)],
+        jnp.zeros((1, 2), jnp.uint32), stride=3, resp_bucket=RESP))
+    del flat
+    with torch.no_grad():
+        got = pm.generate(*[t(a).long() if a.dtype.kind == "i" else t(a)
+                            for a in (text, tm, proms, prm)], TableKeys(tables),
+                          stride=3, resp_bucket=RESP).numpy()
+    assert got.shape == ref.shape == (1, RESP)
+    print(f"zoo/diffusion ancestral stride 3: {float((got == ref).mean()):.4f} of {RESP} "
+          "codes identical")
+    np.testing.assert_array_equal(got, ref)
+    assert (got[0, GEN:] == 0).all()

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import linen as nn
 
@@ -62,8 +63,8 @@ def t(a, dtype=None):
 
 class TableKeys:
     """Port-side stand-in for ``RowKeys``: ``fold(tag)`` selects a tag and
-    ``gumbel(shape)`` returns the table's noise for it, so both packages
-    sample from the same numbers."""
+    ``gumbel(shape)`` / ``uniform(shape)`` return the table's noise for it,
+    so both packages sample from the same numbers."""
 
     def __init__(self, tables: dict, tag=None):
         self.tables, self.tag = tables, tag
@@ -74,11 +75,14 @@ class TableKeys:
     def gumbel(self, shape, device="cpu"):
         return torch.from_numpy(self.tables[(self.tag, len(shape))]).to(device)
 
+    uniform = gumbel
+
 
 def patch_jax_noise(monkeypatch, module, tables: dict):
     """Make ``module``'s ``fold_rows`` carry the tag and its ``row_gumbel``
-    return the same table as ``TableKeys`` (traced tags index a stacked
-    table, so this also works inside ``lax.scan``)."""
+    and ``row_uniform`` return the same table as ``TableKeys`` (traced tags,
+    a MaskGIT step or an ancestral timestep, index a stacked table, so this
+    also works inside ``lax.scan``)."""
     by_rank: dict[int, list] = {}
     for (tag, rank), arr in sorted(tables.items()):
         by_rank.setdefault(rank, []).append((tag, arr))
@@ -100,3 +104,17 @@ def patch_jax_noise(monkeypatch, module, tables: dict):
 
     monkeypatch.setattr(module, "fold_rows", fold_rows)
     monkeypatch.setattr(module, "row_gumbel", row_gumbel)
+    if hasattr(module, "row_uniform"):
+        monkeypatch.setattr(module, "row_uniform", row_gumbel)
+
+
+@pytest.fixture
+def one_thread(monkeypatch):
+    """One intra-op thread for the test, and ``OMP_NUM_THREADS=1`` for the
+    processes it starts: tiny models run thousands of small ops, and beside
+    the other test workers more threads only contend for the cores."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -65,6 +65,24 @@ class Codec:
         return (wav if batched else wav[0]), SAMPLE_RATE
 
 
+def find_weights(explicit: str | Path | None = None) -> Path | None:
+    """``explicit`` (which must exist) or else the first converted-weights
+    file that exists of ``$ENCODEC_WEIGHTS``, ``zoo/encodec_24khz.npz``
+    (from the working directory) and the repository's
+    ``zoo/encodec_24khz.npz``; None if none does."""
+    import os
+
+    if explicit is not None:
+        if not Path(explicit).exists():
+            raise FileNotFoundError(f"codec weights {explicit} not found")
+        return Path(explicit)
+    for cand in (os.environ.get("ENCODEC_WEIGHTS"), "zoo/encodec_24khz.npz",
+                 Path(__file__).resolve().parents[2] / "zoo/encodec_24khz.npz"):
+        if cand and Path(cand).exists():
+            return Path(cand)
+    return None
+
+
 def load_codec(weights_path: str | Path | None, device="cuda", seed: int = 0) -> Codec:
     """Codec with the converted weights at ``weights_path`` (an ``.npz`` of
     flax paths, e.g. ``zoo/encodec_24khz.npz``), or with weights drawn from
@@ -78,4 +96,5 @@ def load_codec(weights_path: str | Path | None, device="cuda", seed: int = 0) ->
         _logger.warning("codec weights drawn from seed %d (not pretrained)", seed)
         return Codec(model, device)
     jax_params_to_torch(load_npz(weights_path), model)
+    _logger.info("codec weights loaded from %s", weights_path)
     return Codec(model, device)

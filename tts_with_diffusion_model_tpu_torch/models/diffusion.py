@@ -1,8 +1,7 @@
 """The D3PM diffusion TTS model (counterpart of ``models/diffusion.py`` in
-the JAX package): the config, the serving response bucket, MaskGIT decoding
-and the training loss.
-
-The ancestral sampler is not ported yet.
+the JAX package): the config, the serving response bucket, the training
+loss, the ancestral sampler (``generate``, every process step or a stride of
+them) and MaskGIT decoding.
 """
 
 from __future__ import annotations
@@ -71,6 +70,15 @@ def maskgit_schedule(d3pm: D3PM, gen_len: int, steps: int):
     return ts, keeps, anneal
 
 
+def ancestral_schedule(timesteps: int, stride: int) -> tuple[list[int], list[int]]:
+    """The ancestral chain's (t, s) pairs: t = T−1, T−1−stride, … ≥ 1, and
+    s the next t (0 after the last)."""
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    ts = list(range(timesteps - 1, 0, -stride))
+    return ts, ts[1:] + [0]
+
+
 class DiffusionModel(torch.nn.Module):
     """A ``DiTDenoiser`` paired with the D3PM process constants."""
 
@@ -129,6 +137,45 @@ class DiffusionModel(torch.nn.Module):
         else:
             raise ValueError(f"unknown train_mode {c.train_mode!r}")
         return loss, {"nll": loss}
+
+    @torch.no_grad()
+    def generate(self, text, text_mask, proms, prom_mask, keys, gen_len: int | None = None,
+                 stride: int = 1, resp_bucket: int | None = None):
+        """The reverse D3PM chain from all-absorbed: one denoiser call per
+        process step t = T−1, T−1−stride, …, then x_s ~ p(x_s | x_t) with
+        s the next step (0 after the last).  ``stride`` 1 samples the
+        one-step posterior (``p_sample``), larger strides the closed-form
+        interval posterior (``p_sample_strided``).  Each row's uniforms are
+        drawn from ``keys.fold(t).uniform`` with t the process timestep, so
+        a row's stream depends neither on its cohort nor on the stride.
+        ``keys`` is a per-row ``RowKeys`` (or any object with its ``fold``
+        / ``uniform`` methods).  Returns (B, resp_bucket) int64 tokens
+        (``resp_bucket`` defaults to ``config.resp_len``); positions ≥
+        gen_len are 0."""
+        c = self.config
+        B, dev = text.shape[0], text.device
+        gl = gen_len if gen_len is not None else c.gen_len
+        bucket = resp_bucket if resp_bucket is not None else c.resp_len
+        if bucket < gl:
+            raise ValueError(f"resp_bucket {bucket} < gen_len {gl}")
+        rm = (torch.arange(bucket, device=dev)[None, :] < gl).float().expand(B, bucket).contiguous()
+        x = torch.where(rm > 0, self.d3pm.absorbing_state, 0).long()
+
+        den = self.denoiser
+        text_cond, spkr_cond = den.conds(text, text_mask, proms, prom_mask)
+        kv_list = den.cond_kv(text_cond, spkr_cond)
+
+        for t_i, s_i in zip(*ancestral_schedule(c.timesteps, stride)):
+            t = torch.full((B,), t_i, dtype=torch.long, device=dev)
+            logits = den.denoise_with_kv(x, rm, t, kv_list, text_mask, prom_mask)
+            noise = keys.fold(t_i).uniform(logits.shape[1:], dev)
+            if stride == 1:
+                x = self.d3pm.p_sample(logits, t, x, uniform_noise=noise)
+            else:
+                s = torch.full((B,), s_i, dtype=torch.long, device=dev)
+                x = self.d3pm.p_sample_strided(logits, t, s, x, uniform_noise=noise)
+            x = x * rm.long()
+        return x
 
     @torch.no_grad()
     def generate_maskgit(self, text, text_mask, proms, prom_mask, keys, steps: int = 12,

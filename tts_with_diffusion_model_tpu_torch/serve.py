@@ -1,16 +1,18 @@
-"""Serving runtime for a D3PM first stage with MaskGIT decoding (counterpart
-of ``serve.Synthesizer`` in the JAX package).
+"""Serving runtime for a D3PM first stage (counterpart of
+``serve.Synthesizer`` in the JAX package).
 
-One device batch runs: MaskGIT over the DiT denoiser at the serving response
-bucket → NAR levels 1..7 → EnCodec decode at a fixed decode bucket, trimmed
-to ``gen_len`` frames.  Requests are padded to fixed buckets: batch 1 or
-``max_batch`` (pad rows copy row 0 and are discarded), text ``text_len``,
-prompt the smallest 128-multiple covering the cohort's longest prompt.
+One device batch runs: the first stage over the DiT denoiser at the serving
+response bucket (MaskGIT, the default, or the ancestral D3PM chain, every
+process step or a stride of them) → NAR levels 1..7 → EnCodec decode at a
+fixed decode bucket, trimmed to ``gen_len`` frames.  Requests are padded to
+fixed buckets: batch 1 or ``max_batch`` (pad rows copy row 0 and are
+discarded), text ``text_len``, prompt the smallest 128-multiple covering
+the cohort's longest prompt.
 Every row's sampling noise derives only from its own seed, so a request's
 audio does not depend on its cohort.
 
-Not ported yet: AR first stages, the ancestral sampler, the HTTP server,
-``Batcher`` and long-form synthesis.
+Not ported yet: AR first stages, the HTTP server, ``Batcher`` and long-form
+synthesis.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from .codec.encodec import HOP, SAMPLE_RATE, Codec
-from .models.diffusion import DiffusionModel
+from .models.diffusion import DiffusionModel, ancestral_schedule
 from .models.nar import NAR, nar_generate
 from .utils.device import resolve_device
 from .utils.rng import RowKeys
@@ -41,8 +43,11 @@ class Synthesizer:
     PROM_CACHE_CAP = 64
 
     def __init__(self, first: DiffusionModel, nar: NAR, codec: Codec, phone_symmap: dict,
-                 *, device="cuda", max_batch: int = 1, maskgit_steps: int = 12,
-                 temperature: float = 1.0, nar_temperature: float = 0.2, bf16: bool = True):
+                 *, device="cuda", max_batch: int = 1, decode: str | None = None,
+                 stride: int = 1, maskgit_steps: int = 12, temperature: float = 1.0,
+                 nar_temperature: float = 0.2, bf16: bool = True):
+        """``decode`` is "maskgit" or "ancestral"; None means ancestral when
+        ``stride`` > 1 (a knob of the ancestral chain), else MaskGIT."""
         from .convert import cast_params_bf16
 
         self.device = resolve_device(device)
@@ -57,6 +62,8 @@ class Synthesizer:
         self.phone_symmap = phone_symmap
         c = first.config
         self.text_len, self.prom_len, self.gen_len = c.text_len, c.prom_len, c.gen_len
+        self.decode = resolve_decode(decode, stride)
+        self.stride = max(1, int(stride))
         self.maskgit_steps = max(1, min(int(maskgit_steps), c.gen_len))
         self.resp_bucket = c.serving_resp_bucket
         self.temperature = temperature
@@ -67,14 +74,13 @@ class Synthesizer:
 
     @classmethod
     def from_bundles(cls, ar_ckpt, nar_ckpt, codec_weights, *, device="cuda",
-                     bf16: bool = True, decode: str = "maskgit", **kw) -> "Synthesizer":
-        """Load a diffusion bundle, a NAR bundle and converted codec weights."""
+                     bf16: bool = True, **kw) -> "Synthesizer":
+        """Load a diffusion bundle, a NAR bundle and converted codec weights
+        (``codec_weights`` None: weights drawn from seed 0)."""
         from .bundle import load_bundle, load_meta
         from .codec.encodec import load_codec
         from . import convert
 
-        if decode != "maskgit":
-            raise NotImplementedError(f"--decode {decode}: not ported yet (only maskgit is)")
         device = resolve_device(device)
         dtype = torch.bfloat16 if bf16 else torch.float32
         first_meta, nar_meta = load_meta(ar_ckpt), load_meta(nar_ckpt)
@@ -174,10 +180,14 @@ class Synthesizer:
         proms, pm = stack("proms")[:, :pb], stack("prom_mask")[:, :pb].contiguous()
         keys = RowKeys.from_seeds(row_seeds)
         with self._lock:
-            toks = self.first.generate_maskgit(
-                text, tm, proms, pm, keys.fold(0), steps=self.maskgit_steps,
-                temperature=self.temperature, resp_bucket=self.resp_bucket,
-            )[:, : self.gen_len]
+            if self.decode == "maskgit":
+                toks = self.first.generate_maskgit(
+                    text, tm, proms, pm, keys.fold(0), steps=self.maskgit_steps,
+                    temperature=self.temperature, resp_bucket=self.resp_bucket)
+            else:
+                toks = self.first.generate(text, tm, proms, pm, keys.fold(0),
+                                           stride=self.stride, resp_bucket=self.resp_bucket)
+            toks = toks[:, : self.gen_len]
             rm = torch.ones((pad_to, self.gen_len), dtype=torch.float32, device=dev)
             codes = nar_generate(self.nar, text, tm, proms, pm, toks, rm, keys.fold(1),
                                  sampling_temperature=self.nar_temperature)
@@ -209,8 +219,26 @@ class Synthesizer:
         return self.synthesize_batch([(text, reference, seed)])[0]
 
     @property
+    def denoiser_calls(self) -> int:
+        """Denoiser evaluations of the first stage per batch: the MaskGIT
+        steps, or one per process step of the ancestral chain's schedule."""
+        if self.decode == "maskgit":
+            return self.maskgit_steps
+        return len(ancestral_schedule(self.first.config.timesteps, self.stride)[0])
+
+    @property
     def sample_rate(self) -> int:
         return SAMPLE_RATE
+
+
+def resolve_decode(decode: str | None, stride: int) -> str:
+    """The first stage's sampler: ``decode`` when given, else "ancestral"
+    for a stride above 1 and "maskgit" otherwise."""
+    if decode is None:
+        return "ancestral" if stride > 1 else "maskgit"
+    if decode not in ("maskgit", "ancestral"):
+        raise ValueError(f"unknown decode {decode!r} (maskgit or ancestral)")
+    return decode
 
 
 def build_model(meta: dict, dtype=torch.bfloat16):

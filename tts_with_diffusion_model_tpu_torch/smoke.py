@@ -8,7 +8,8 @@ size with the plain versions).
              path gives it, fp32 and bf16, with times beside the plain
              version's and a PyTorch library call's;
 4. slice   — a ``Synthesizer`` answering a batch of requests, with the
-             kernels' launch counts read around it.
+             kernels' launch counts read around it (``serve_and_check``,
+             which the export → serve phase of ``smoke_export.py`` also runs).
 
 Every phase prints one line with its seconds when it ends; a failing check
 raises ``SmokeError``.
@@ -346,10 +347,20 @@ def batch_totals(results: list[dict]) -> dict:
             "library_ms": total("library_ms")}
 
 
+def path_totals(results: list[dict], sites: list[Site], launches_run: int) -> dict:
+    """Per-batch sums of a path that runs the sites timed in ``results`` at
+    other counts (``sites``, matched by name): the ancestral chain runs
+    MaskGIT's sites, its DiT sites once per process step."""
+    count = {s.name: s.count for s in sites}
+    timed = [dict(r, count=count[r["site"]]) for r in results if "ms" in r and r["count"]]
+    return dict(batch_totals(timed), launches_run=launches_run)
+
+
 def kernel_summary(results: list[dict], launches: int, eval_results=None,
-                   eval_launches: int | None = None) -> dict:
+                   eval_launches: int | None = None, paths: dict | None = None) -> dict:
     """The kernel's line: per-batch sums over the main path's timed sites;
-    with ``eval_results``, also per NAR val-loss eval batch (``paths``)."""
+    with ``eval_results``, also per NAR val-loss eval batch, and the other
+    ``paths`` (``path_totals``), under ``paths``."""
     serving = batch_totals(results)
     line = {
         "name": "masked_attention",
@@ -366,6 +377,8 @@ def kernel_summary(results: list[dict], launches: int, eval_results=None,
         line["paths"] = {"serving": dict(serving, launches_run=launches),
                          "nar eval": dict(batch_totals(eval_results),
                                           launches_run=eval_launches)}
+    if paths:
+        line.setdefault("paths", {}).update(paths)
     return line
 
 
@@ -442,7 +455,7 @@ def build_synthesizer(device, size: str, zoo: bool, seed: int, max_batch: int = 
         synth = Synthesizer.from_bundles(REPO / "zoo/diffusion", REPO / "zoo/nar",
                                          REPO / "zoo/encodec_24khz.npz", device=device,
                                          max_batch=max_batch)
-        return synth, {"d_model": synth.nar.base.d_model, "n_heads": 16, "n_layers": 12}
+        return synth, nar_dims_of(synth.nar)
     first, nar, nar_dims, codec_model = full_models() if size == "full" else tiny_models()
     init_seeded(first.denoiser, seed)
     init_seeded(nar, seed + 1)
@@ -458,23 +471,45 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def nar_dims_of(nar) -> dict:
+    base = nar.base
+    return {"d_model": base.d_model, "n_heads": base.blocks()[0].attn.n_heads,
+            "n_layers": base.n_layers}
+
+
+def make_requests(n: int, ref_seconds: float, seed: int) -> list[tuple]:
+    """(text, reference wav, seed) for ``n`` requests of ``TEXTS``."""
+    refs = reference_wavs(n, ref_seconds, seed)
+    return [(text, ref, seed + i) for i, (text, ref) in enumerate(zip(TEXTS, refs))]
+
+
 def phase_slice(device, size: str = "full", zoo: bool = False, seed: int = 0,
                 repeats: int = 3, ref_seconds: float = 3.0) -> dict:
-    """Build the Synthesizer, answer one batch of len(TEXTS) requests and check
-    it; then the same seeds again, a denoiser call kernel-vs-plain, and the
-    p50 of ``repeats`` more batches."""
+    """Build the Synthesizer and serve ``TEXTS`` through it (``serve_and_check``)."""
     t0 = time.perf_counter()
     synth, nar_dims = build_synthesizer(device, size, zoo, seed)
     log(f"slice: {size} Synthesizer on {device} built in {time.perf_counter() - t0:.2f} s "
         f"({'zoo bundles' if zoo else 'seeded weights'})")
-    refs = reference_wavs(len(TEXTS), ref_seconds, seed)
-    requests = [(text, ref, seed + i) for i, (text, ref) in enumerate(zip(TEXTS, refs))]
+    requests = make_requests(len(TEXTS), ref_seconds, seed)
+    out = serve_and_check(synth, nar_dims, requests, "slice", repeats)
+    return dict(out, nar_dims=nar_dims, dit_cfg=synth.first.config, synth=synth,
+                requests=requests)
+
+
+def serve_and_check(synth, nar_dims: dict, requests, label: str, repeats: int = 3) -> dict:
+    """Answer one batch of ``requests`` with the kernel counts set to 0 just
+    before and read just after, and check the launches against the count
+    the sites give, the codes and the wavs; then the same seeds again, one
+    denoiser call kernel-vs-plain, and the p50 of ``repeats`` more batches."""
+    device = synth.device
     prepared = [synth.prepare(t, r) for t, r, _ in requests]
     seeds = [s for _, _, s in requests]
     pb = synth.prompt_bucket(prepared)
-    sites = attention_sites(synth.first.config, nar_dims, synth.maskgit_steps, pb)
+    calls = synth.denoiser_calls
+    sites = attention_sites(synth.first.config, nar_dims, calls, pb)
     expected = expected_launches(sites)
     fn = attn_ops.masked_attention
+    what = synth.decode + (f" stride {synth.stride}" if synth.decode == "ancestral" else "")
 
     fn.launches, fn.plain_calls = 0, 0
     _sync(device)
@@ -484,11 +519,12 @@ def phase_slice(device, size: str = "full", zoo: bool = False, seed: int = 0,
     first_s = time.perf_counter() - t1
     launches, plain_calls = fn.launches, fn.plain_calls
     counted = launches if device.type == "cuda" else plain_calls
-    log(f"slice: first batch of {len(requests)} in {first_s:.3f} s; prompt bucket {pb}; "
-        f"kernel launches {launches}, plain calls {plain_calls}, expected {expected}")
-    check(counted == expected, f"attention calls {counted} != expected {expected}")
+    log(f"{label}: {what} ({calls} denoiser calls), first batch of {len(requests)} in "
+        f"{first_s:.3f} s; prompt bucket {pb}; kernel launches {launches}, plain calls "
+        f"{plain_calls}, expected {expected}")
+    check(counted == expected, f"{label} {what}: attention calls {counted} != expected {expected}")
     if device.type == "cuda":
-        check(plain_calls == 0, "the plain path ran on the card")
+        check(plain_calls == 0, f"{label} {what}: the plain path ran on the card")
     gl = synth.gen_len
     for i, (c, w) in enumerate(zip(codes, wavs)):
         check(c.shape == (gl, 8), f"request {i}: codes {c.shape} != {(gl, 8)}")
@@ -498,10 +534,10 @@ def phase_slice(device, size: str = "full", zoo: bool = False, seed: int = 0,
 
     codes2, _ = synth._device_batch(prepared, seeds, want_wav=True)
     check(all(np.array_equal(a, b) for a, b in zip(codes, codes2)),
-          "a second run with the same seeds gave other codes")
+          f"{label} {what}: a second run with the same seeds gave other codes")
 
     den_err, den_scale = denoiser_kernel_vs_plain(synth, prepared, seeds)
-    log(f"slice: denoiser logits kernel vs plain max abs err {den_err:.4g} "
+    log(f"{label}: denoiser logits kernel vs plain max abs err {den_err:.4g} "
         f"(max |logit| {den_scale:.4g})")
     check(den_err <= TOL[torch.bfloat16] * max(1.0, den_scale),
           f"denoiser kernel vs plain: {den_err:.4g} > {TOL[torch.bfloat16]} x max(1, {den_scale:.4g})")
@@ -514,12 +550,11 @@ def phase_slice(device, size: str = "full", zoo: bool = False, seed: int = 0,
         _sync(device)
         times.append(time.perf_counter() - t2)
     p50 = float(np.median(times))
-    log(f"slice: synthesize_batch of {len(requests)} p50 {p50 * 1e3:.1f} ms over {repeats} "
-        f"({'host clock around synchronised work' if device.type == 'cuda' else 'cpu, not a device time'})")
+    log(f"{label}: {what} synthesize_batch of {len(requests)} p50 {p50 * 1e3:.1f} ms over "
+        f"{repeats} ({'host clock around synchronised work' if device.type == 'cuda' else 'cpu, not a device time'})")
     return {"launches": launches, "expected": expected, "p50_s": p50, "first_s": first_s,
-            "times_s": times, "prompt_bucket": pb, "sites": sites,
-            "denoiser_err": den_err, "nar_dims": nar_dims, "dit_cfg": synth.first.config,
-            "steps": synth.maskgit_steps, "synth": synth, "requests": requests}
+            "times_s": times, "prompt_bucket": pb, "sites": sites, "denoiser_err": den_err,
+            "steps": calls, "codes": codes, "decode": what}
 
 
 def profile_call(fn, what: str, top: int = 8) -> dict:

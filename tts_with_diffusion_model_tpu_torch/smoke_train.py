@@ -559,7 +559,7 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
              "eval_launches": served, "eval_per_batch": per_eval_batch, "eval": eval_lines,
              "moved": moved, "ema_moved": ema_moved,
              "losses": [r[0]["model.loss"] for r in records], "sites": sites,
-             "checkpoint": str(ckpt)}
+             "checkpoint": str(ckpt), "argv": argv}
     where = "host clock around synchronised steps" if on_card else "cpu"
     log(f"train {cfg.model}: {steps} steps in {wall:.1f} s; step p50 {p50 * 1e3:.1f} ms "
         f"({where}), first {times[0] * 1e3:.1f} ms; {out_d['frames_per_s']:.0f} padded frames/s "
