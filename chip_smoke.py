@@ -10,7 +10,13 @@ val-loss eval at the last); then export → serve: the D3PM and NAR runs
 exported by the export CLI (``--ema``), the bundles held bit for bit
 against the engines' EMA, and a ``Synthesizer`` over them answering the
 same requests with MaskGIT, the ancestral chain (99 denoiser calls) and the
-ancestral chain at stride 3 (33).  Builds every CUDA kernel from the
+ancestral chain at stride 3 (33); then export → serve ar: the AR run
+exported and round-tripped the same way, and a ``Synthesizer`` over it and
+the exported NAR decoding up to 448 tokens per request over a KV cache
+(prefill on kernel 2's forward, the NAR on kernel 1), with greedy
+speculative decoding held token for token against plain greedy in fp32 (the
+target as its own draft, and a seeded ar-quarter draft) and compared in
+bf16.  Builds every CUDA kernel from the
 sources in this checkout with ``nvcc`` and counts the wgmma (HGMMA) and TMA
 (UTMALDG) instructions in each library, holds each kernel against its plain
 PyTorch version at every shape these paths give it (printing each site's
@@ -38,14 +44,14 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one serving batch and one train step with "
-                             "torch.profiler and print where the time goes")
+                        help="also trace one serving batch (MaskGIT and AR) and one train "
+                             "step with torch.profiler and print where the time goes")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
     try:
         import torch
-        from tts_with_diffusion_model_tpu_torch import smoke, smoke_export, smoke_train
+        from tts_with_diffusion_model_tpu_torch import smoke, smoke_ar, smoke_export, smoke_train
     except ImportError as e:
         print(f"chip_smoke: FAILED: cannot import the port ({e})", file=sys.stderr)
         return 2
@@ -69,11 +75,16 @@ def main() -> int:
             prompt_buckets=(128, 256, 384, 398), timed_bucket=256, seed=args.seed)
         eval_B, eval_site = smoke_train.nar_eval_site()
         eval_results = smoke.phase_site_check(device, eval_site, eval_B, seed=args.seed)
+        # the AR path's NAR: text 50 + sep + prompt 256 + sep + 448 response slots
+        ar_nar_results = smoke.phase_site_check(
+            device, smoke_ar.nar_site(cfg.text_len, 256, smoke_ar.MAX_STEPS, nar_dims),
+            len(smoke.TEXTS), seed=args.seed)
     with smoke.phase("train kernel vs plain"):
         train_cfg, train_model = smoke_train.recipe(smoke_train.TRAIN_YAML)
         train_sites = smoke_train.step_sites(train_model, train_cfg)
+        ar_sites = smoke_train.ar_prefill_sites((128, 256, 384, 398), timed_bucket=256)
         train_results = smoke_train.phase_train_kernel_check(
-            device, [*train_sites, *smoke_train.packed_sites()], seed=args.seed)
+            device, [*train_sites, *smoke_train.packed_sites(), *ar_sites], seed=args.seed)
         smoke_train.check_backward_determinism(
             next(s for s in train_sites if s.name == "DiT self"), device, seed=args.seed)
     with smoke.phase("slice"):
@@ -129,10 +140,29 @@ def main() -> int:
                   f"{len(smoke.TEXTS)} on {info['smi']}")
         if what != "maskgit":
             paths[what] = smoke.path_totals(results, r["sites"], r["launches"])
+    nar_bundle = es["exports"]["nar"]["path"]
     del es
     torch.cuda.empty_cache()
+    # the card-trained AR, exported at step 8 and served over the exported NAR
+    with smoke.phase("export -> serve ar"):
+        ar = smoke_ar.phase_export_serve_ar(device, argvs["ar"], nar_bundle, 8, seed=args.seed,
+                                            repeats=args.repeats, profile=args.profile)
+    served = ar["served"]
+    smoke.check(served["prompt_bucket"] == 256,
+                f"AR prompt bucket {served['prompt_bucket']} != the timed bucket 256")
+    smoke.check(served["expected"] == {"kernel2": 12, "kernel1": 84},
+                f"AR expected launches {served['expected']} != 12 and 84")
+    smoke.log(f"export -> serve ar: p50 {served['p50_s'] * 1e3:.1f} ms per batch of "
+              f"{len(smoke.TEXTS)}, lengths {served['lengths']}, first stage alone "
+              f"{served['ar_s'] * 1e3:.1f} ms, on {info['smi']}")
+    paths["ar serve"] = dict(smoke.batch_totals(ar_nar_results),
+                             launches_run=served["launches"]["kernel1"])
+    eval_runs += [("ar serve", 12, 0, served["launches"]["kernel2"]),
+                  ("ar serve draft", 12, 0, ar["spec"]["fp32 quarter"]["kernel2"] - 12)]
+    del ar, served
+    torch.cuda.empty_cache()
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
-                                    paths),
+                                    paths, checked=ar_nar_results),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

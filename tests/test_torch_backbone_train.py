@@ -237,9 +237,6 @@ def test_registry_refuses_bad_names():
         get_model("diffusion-gaussian")
     with pytest.raises(NotImplementedError, match="remat_policy"):
         get_model("ar-quarter", 64, {"remat_policy": "dots"})
-    for method in ("prefill", "decode_step", "decode_chunk"):
-        with pytest.raises(NotImplementedError, match="AR first stage for serving"):
-            getattr(AR(8, 16, 2, 1), method)()
 
 
 @pytest.mark.parametrize("family", ["ar", "nar"])

@@ -85,15 +85,18 @@ def test_cast_params_bf16_keeps_norms_and_vectors_fp32():
     assert dt["base.sep"] == torch.float32
 
 
-@pytest.mark.parametrize("case", ["ar_bundle", "ancestral"])
+@pytest.mark.parametrize("case", ["gaussian_bundle", "ancestral"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, case):
     from tts_with_diffusion_model_tpu_torch.__main__ import main
 
-    (tmp_path / "ar").mkdir()
-    (tmp_path / "ar" / "model.json").write_text('{"model": "ar", "num_tokens": 1024}')
+    (tmp_path / "gauss").mkdir()
+    (tmp_path / "gauss" / "model.json").write_text(
+        '{"model": "diffusion-gaussian", "num_tokens": 1024}')
+    (tmp_path / "nar").mkdir()
+    (tmp_path / "nar" / "model.json").write_text('{"model": "nar", "num_tokens": 1024}')
     args = ["hello there", "ref.wav", str(tmp_path / "out.wav"), "--device", "cpu",
-            "--ar-ckpt", str(tmp_path / "ar"), "--nar-ckpt", str(tmp_path / "ar")]
-    if case == "ancestral":  # ancestral decoding is ported; the AR first stage is not
+            "--ar-ckpt", str(tmp_path / "gauss"), "--nar-ckpt", str(tmp_path / "nar")]
+    if case == "ancestral":  # ancestral decoding is ported; the Gaussian family is not
         args += ["--decode", "ancestral"]
     with pytest.raises(SystemExit) as e:
         main(args)
@@ -121,7 +124,7 @@ def test_port_and_chip_smoke_import_without_jax():
     for mod in ("train.__main__", "train.train", "train.trainer", "train.engine", "config",
                 "data.dataset", "data.sampler", "utils.config_base", "utils.logging",
                 "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
-                "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export"):
+                "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export", "smoke_ar"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

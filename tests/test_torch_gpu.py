@@ -351,3 +351,131 @@ def test_ancestral_tight_and_full_buckets_agree_on_the_card(cuda):
     tight = model.generate(text, tm, proms, pm, keys, stride=3, resp_bucket=384)
     full = model.generate(text, tm, proms, pm, keys, stride=3, resp_bucket=448)
     assert torch.equal(tight[:, :350], full[:, :350])
+
+
+def _ar_batch(cuda, B=4, pb=256, seed=9):
+    """Seeded AR conditioning at the serving buckets: text 50 and prompt
+    ``pb`` with pads mid-row."""
+    rs = np.random.RandomState(seed)
+    text = torch.from_numpy(rs.randint(1, 60, (B, 50))).to(cuda)
+    tm = torch.ones(B, 50, device=cuda)
+    tm[1, 31:] = 0
+    proms = torch.from_numpy(rs.randint(0, 1024, (B, pb, 8))).to(cuda)
+    pm = torch.ones(B, pb, device=cuda)
+    pm[0, 225:] = 0
+    pm[2, 97:] = 0
+    return text * tm.long(), tm, proms, pm
+
+
+def _seeded_ar(cuda, name, dtype, seed):
+    from tts_with_diffusion_model_tpu_torch.convert import cast_params_bf16, init_seeded
+    from tts_with_diffusion_model_tpu_torch.models import get_model
+
+    model = get_model(name, 1024, dtype=dtype)
+    init_seeded(model, seed)
+    model = model.to(cuda).eval()
+    return cast_params_bf16(model) if dtype == torch.bfloat16 else model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_ar_prefill_through_kernel_2_matches_the_plain_route(cuda, dtype, tol):
+    """The registry AR (d1024/16/12, seeded) at 50 + 1 + 256 + 1 slots:
+    last logits and every block's cached k, v through kernel 2's forward
+    against the plain causal attention, within tol·max(1, max |ref|)."""
+    from unittest import mock
+
+    from tts_with_diffusion_model_tpu_torch.ops import train_flash_attention as train_ops
+
+    model = _seeded_ar(cuda, "ar", dtype, 0)
+    batch = _ar_batch(cuda)
+    before = train_flash_attention.launches
+    got, cache = model.prefill(*batch, 308 + 8)
+    torch.cuda.synchronize()
+    assert train_flash_attention.launches == before + 12
+    with mock.patch.object(train_ops, "train_flash_attention", train_flash_attention_plain):
+        ref, ref_cache = model.prefill(*batch, 308 + 8)
+    for a, b in [(got, ref), *zip(cache.k + cache.v, ref_cache.k + ref_cache.v)]:
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(1.0, b.float().abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_fp32_greedy_speculative_equals_plain_greedy_on_the_card(cuda, k):
+    """A seeded ar-quarter target in fp32 (TF32 off) with a seeded one-block
+    draft, and with itself as the draft: the speculative tokens and lengths
+    are the plain greedy decode's."""
+    from tts_with_diffusion_model_tpu_torch.models.ar import ar_generate, ar_generate_speculative
+
+    target = _seeded_ar(cuda, "ar-quarter", torch.float32, 1)
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+    from tts_with_diffusion_model_tpu_torch.models import get_model
+
+    draft = get_model("ar-quarter", 1024, {"n_layers": 1}, dtype=torch.float32)
+    init_seeded(draft, 2)
+    draft = draft.to(cuda).eval()
+    batch = _ar_batch(cuda, pb=128)
+    plain, plain_lens = ar_generate(target, *batch, None, max_steps=48, sampling_temperature=0.0)
+    for d in (draft, target):
+        toks, lens = ar_generate_speculative(target, d, *batch, None, max_steps=48, k=k)
+        assert torch.equal(lens, plain_lens)
+        for b in range(4):
+            n = max(int(plain_lens[b]), 1)
+            assert torch.equal(toks[b, :n], plain[b, :n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_decode_step_reading_the_filled_slots_matches_the_whole_cache(cuda, dtype, tol,
+                                                                      monkeypatch):
+    """A decode step of the registry AR that reads ``cache[:, :index + 1]``
+    against one that reads the whole cache (every later slot masked): the
+    logits agree within tol·max(1, max |ref|) (the reductions' lengths
+    differ, so not bit for bit) and argmax to the same tokens."""
+    import copy
+
+    from tts_with_diffusion_model_tpu_torch.models import base
+    from tts_with_diffusion_model_tpu_torch.ops.attention import dense_attention
+
+    model = _seeded_ar(cuda, "ar", dtype, 3)
+    batch = _ar_batch(cuda)
+    _, cache = model.prefill(*batch, 308 + 448)
+    tok = torch.tensor([5, 6, 7, 8], device=cuda)
+    for _ in range(3):
+        _, cache = model.decode_step(tok, cache)
+    twin = copy.deepcopy(cache)
+    cut, _ = model.decode_step(tok, cache)
+
+    def decode_full(self, x, cache_k, cache_v, index, kv_mask):
+        B, W, _ = x.shape
+        qkv = self._qkv(x)
+        cache_k[:, index:index + W], cache_v[:, index:index + W] = qkv[:, :, 1], qkv[:, :, 2]
+        o = dense_attention(qkv[:, :, 0], cache_k, cache_v, pair_mask=kv_mask[:, None, :])
+        return self.to_out(o.reshape(B, W, self.d_model))
+
+    monkeypatch.setattr(base.Attention, "decode", decode_full)
+    full, _ = model.decode_step(tok, twin)
+    err = (cut - full).abs().max().item()
+    assert err <= tol * max(1.0, full.abs().max().item()), err
+    assert torch.equal(cut.argmax(-1), full.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_tiny_ar_serving_batch_goes_through_both_kernels(cuda):
+    """A tiny AR + NAR Synthesizer on the card: 2 kernel-2 forwards (the
+    prefill) and 14 kernel-1 launches (the NAR) per batch, no plain call."""
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+    from tts_with_diffusion_model_tpu_torch.models import get_model
+    from tts_with_diffusion_model_tpu_torch.serve import Synthesizer
+    from tts_with_diffusion_model_tpu_torch.smoke_ar import serve_ar_and_check
+
+    base, _ = smoke.build_synthesizer(cuda, "tiny", zoo=False, seed=0, max_batch=2)
+    ar = get_model("ar", 1024, {"d_model": 128, "n_heads": 2, "n_layers": 2},
+                   dtype=torch.float32)
+    init_seeded(ar, 4)
+    synth = Synthesizer(ar, base.nar, base.codec, base.phone_symmap, device=cuda, max_batch=2,
+                        bf16=False, max_ar_steps=32)
+    out = serve_ar_and_check(synth, smoke.make_requests(2, 0.5, seed=1), "gpu test", repeats=1)
+    assert out["launches"]["kernel2"] == 2 and out["launches"]["kernel1"] == 14

@@ -1,18 +1,35 @@
 """The port's whole chain (``recipe_run``) rehearsed on the CPU at its tiny
 size: corpus → g2p → qnt → D3PM and NAR training → the val-loss spread →
-export → serving with MaskGIT and the ancestral chain, bf16 and fp32."""
+export → serving with MaskGIT and the ancestral chain, bf16 and fp32; then
+the AR chain in the same workdir (``--ar``), reusing its corpus, codes and
+NAR bundle: AR and ar-quarter training, exports, AR serving and greedy
+speculative decoding at k = 2, 4, 6, 8."""
 
 import json
 
 import numpy as np
+import pytest
+import torch
 
 from tts_with_diffusion_model_tpu_torch import recipe_run
 
-from torch_port_helpers import one_thread  # noqa: F401 (fixture)
+
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """The tiny D3PM chain on one intra-op thread (its children too)."""
+    work = tmp_path_factory.mktemp("recipe")
+    n = torch.get_num_threads()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        torch.set_num_threads(1)
+        try:
+            yield work, recipe_run.main([str(work), "--device", "cpu", "--tiny"])
+        finally:
+            torch.set_num_threads(n)
 
 
-def test_recipe_run_tiny_on_the_cpu(tmp_path, one_thread):
-    report = recipe_run.main([str(tmp_path), "--device", "cpu", "--tiny"])
+def test_recipe_run_tiny_on_the_cpu(tiny_run):
+    tmp_path, report = tiny_run
     assert json.loads((tmp_path / "report.json").read_text()).keys() == report.keys()
     assert report["device"] == "cpu"
     assert len(list((tmp_path / "data" / "train").rglob("*.qnt.npy"))) == 22
@@ -38,3 +55,28 @@ def test_recipe_run_tiny_on_the_cpu(tmp_path, one_thread):
     assert 0 < logits["max_abs_diff"] < logits["max_abs_fp32"]
     with np.load(tmp_path / "codes.npz") as z:
         assert all(z[k].shape == (2, 40, 8) for k in z.files) and len(z.files) == 4
+
+
+def test_recipe_run_ar_chain_reuses_the_workdir(tiny_run):
+    tmp_path, _ = tiny_run
+    report = recipe_run.main([str(tmp_path), "--device", "cpu", "--tiny", "--ar"])
+    assert json.loads((tmp_path / "report_ar.json").read_text()).keys() == report.keys()
+    # the corpus, its codes and the NAR bundle were the D3PM run's
+    assert not {"corpus", "g2p", "qnt", "train_nar", "export_nar"} & set(report["seconds"])
+    for name in ("ar", "ar-quarter"):
+        assert report[name]["steps"] == 4 and [s for s, _ in report[name]["val"]] == [2, 4]
+        assert report["exported"][name]["step"] == 4
+        meta = json.loads((tmp_path / "zoo" / name / "model.json").read_text())
+        assert meta["weights"] == "ema" and meta["model"] == name
+    served = report["ar_serve"]
+    assert served["served_requests"] == 2 and served["max_ar_steps"] == 24
+    assert all(1 <= n <= 24 for n in served["lengths"]) and served["serve_p50_ms"] > 0
+    greedy = served["greedy"]
+    assert greedy["max_steps"] == 16 and list(greedy["k"]) == [2, 4, 6, 8]
+    for k, entry in greedy["k"].items():
+        # served in bf16: a divergence from plain greedy is recorded with the
+        # top-2 margin where it happened
+        assert entry["identical"] == (entry["first_divergence"] is None)
+        assert (entry["tie_margin"] is None) == entry["identical"]
+        assert entry["rounds"] >= 1 and 0.0 <= entry["accepted_per_round"] <= k + 1
+        assert 0.0 <= entry["acceptance_rate"] <= 1.0 and entry["tok_s"] > 0

@@ -226,3 +226,67 @@ def test_export_serve_phase_rehearsal():
         assert r["launches"] == 0 and r["denoiser_err"] == 0.0 and r["p50_s"] > 0
         assert r["expected"] == 4 + r["steps"] * 2 * 3 + 7 * 2
         assert all(c.shape == (40, 8) for c in r["codes"])
+
+
+def test_export_serve_ar_phase_rehearsal():
+    """Tiny AR and NAR runs of the train phase, the NAR exported, then the
+    AR phase over them through the plain versions: the AR's export and
+    round trip, one served batch with the plain calls counted (2 prefill
+    forwards, 14 NAR attentions), codes and lengths checked, and the fp32
+    speculative comparisons (a one-block quarter draft)."""
+    from tts_with_diffusion_model_tpu_torch import smoke_ar, smoke_export, smoke_train
+    from tts_with_diffusion_model_tpu_torch.codec.encodec import Codec
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+
+    corpus = (3, 12, (8, 30), (3, 12))
+    overrides = ["device=cpu", "batch_size=4", "eval_batch_size=8", "max_num_val=8", "nj=1",
+                 "resp_len_buckets=[32]", "model_overrides={d_model: 32, n_heads: 2, n_layers: 2}",
+                 "prom_len_buckets=[64]", "max_prom_len=128", "max_resp_len=64"]
+    runs = {yaml: smoke_train.phase_train(CPU, getattr(smoke_train, f"{yaml}_YAML"), steps=2,
+                                          corpus=corpus, overrides=overrides)
+            for yaml in ("AR", "NAR")}
+    nar = smoke_export.export_run(runs["NAR"]["argv"], smoke.SMOKE_DIR / "export" / "nar", 2)
+    small = smoke.tiny_models()[3]
+    init_seeded(small, 2)
+    out = smoke_ar.phase_export_serve_ar(
+        CPU, runs["AR"]["argv"], nar["path"], 2, repeats=1, ref_seconds=0.5,
+        codec=Codec(small, CPU), max_steps=24, quarter_steps=8,
+        quarter_overrides={"d_model": 32, "n_heads": 2, "n_layers": 1})
+    assert out["export"]["params"] > 0 and out["export"]["bytes"] > 0
+    served = out["served"]
+    assert served["expected"] == {"kernel2": 2, "kernel1": 14}
+    assert served["launches"]["kernel2_plain"] == 2 and served["launches"]["kernel1_plain"] == 14
+    assert all(1 <= n <= 24 for n in served["lengths"]) and served["prefill_err"] == 0.0
+    spec = out["spec"]
+    assert spec["fp32 self"]["identical"] and spec["fp32 quarter"]["identical"]
+    assert spec["fp32 quarter"]["kernel2_plain"] == 3  # the target's 2 blocks + the draft's 1
+    # the target as its own draft accepts every proposal: 23 tokens after the
+    # first in rounds of k + 1 = 5, the last one cut at max_steps
+    if min(spec["fp32 self"]["lengths"]) == 24:
+        assert spec["fp32 self"]["rounds"] == 5
+    assert set(spec) == {"fp32 self", "fp32 quarter", "bf16 self", "bf16 quarter"}
+
+
+def test_ar_prefill_sites_and_their_layout_masks():
+    """Kernel 2's AR prefill sites: 50 + 1 + pb + 1 slots, 12 forwards per
+    batch only at the timed bucket (and the quarter draft's, 4 heads), keys
+    masked as the packed prefix is: text and prompt pads mid-row, seps
+    valid; the site check runs them through the plain version here."""
+    from tts_with_diffusion_model_tpu_torch import smoke_ar, smoke_train
+
+    sites = smoke_train.ar_prefill_sites((128, 256, 384, 398), timed_bucket=256)
+    assert [(s.Tq, s.H, s.fwd, s.bwd, s.path) for s in sites] == [
+        (180, 16, 0, 0, "ar serve"), (308, 16, 12, 0, "ar serve"), (436, 16, 0, 0, "ar serve"),
+        (450, 16, 0, 0, "ar serve"), (308, 4, 12, 0, "ar serve draft")]
+    assert all(s.causal and s.fused and s.Dh == 64 for s in sites)
+    mask = smoke_train.prefix_mask(4, 50, 256, torch.Generator().manual_seed(0))
+    assert mask.shape == (4, 308) and (mask[:, 50] == 1).all() and (mask[:, 307] == 1).all()
+    assert (mask[:, :50].sum(1) >= 3).all() and (mask[:, :3] == 1).all()
+    nar = smoke_ar.nar_site(50, 256, 448, {"d_model": 1024, "n_heads": 16, "n_layers": 12})
+    assert (nar.Tq, nar.Tk, nar.H, nar.Dh, nar.count) == (756, 756, 16, 64, 84)
+    tiny = [smoke_train.TrainSite("prefill", 3, 14, 14, 2, 8, True, 2, 0, path="ar serve",
+                                  fused=True, layout=(4, 8))]
+    res = smoke_train.phase_train_kernel_check(CPU, tiny)
+    assert [r["max_abs_err"] for r in res] == [0.0, 0.0]
+    line = smoke_train.train_kernel_summary(res, [], [("ar serve", 2, 0, 2)])
+    assert line["paths"]["ar serve"]["launches"] == 2 and line["launches"] == 0

@@ -2,8 +2,10 @@
 committed zoo weights, in fp32 on the CPU at B = 1: DiT logits
 (``zoo/diffusion``), one NAR level (``zoo/nar``) at the packed serving
 length, the AR's training-forward logits (``zoo/ar``) at the gen4c packed
-length, and MaskGIT and ancestral (stride 3) codes under injected noise.  Logits within
-1e-3·max(1, max |ref|); each test prints its observed max |Δ|."""
+length, the AR's cached decode (prefill, 8 decode steps, 24 greedy tokens
+with the 0.1 top-2 tie rule of ROADMAP.md §3), and MaskGIT and ancestral
+(stride 3) codes under injected noise.  Logits within 1e-3·max(1, max
+|ref|); each test prints its observed max |Δ|."""
 
 from pathlib import Path
 
@@ -15,11 +17,14 @@ import torch
 
 import tts_with_diffusion_model_tpu.models.diffusion as jax_diffusion
 from tts_with_diffusion_model_tpu.models import get_model as jax_get_model
+from tts_with_diffusion_model_tpu.models.ar import AR as JaxAR
+from tts_with_diffusion_model_tpu.models.ar import ar_generate as jax_ar_generate
 from tts_with_diffusion_model_tpu.models.diffusion import DiffusionConfig as JaxConfig
 from tts_with_diffusion_model_tpu.models.diffusion import DiffusionModel as JaxDiffusion
 from tts_with_diffusion_model_tpu.models.nar import NAR as JaxNAR
 from tts_with_diffusion_model_tpu_torch.bundle import load_bundle
 from tts_with_diffusion_model_tpu_torch.convert import jax_params_to_torch
+from tts_with_diffusion_model_tpu_torch.models.ar import ar_generate
 from tts_with_diffusion_model_tpu_torch.serve import build_model
 
 from torch_port_helpers import TableKeys, patch_jax_noise, t, unflatten
@@ -114,6 +119,55 @@ def test_zoo_ar_training_forward_at_the_gen4c_packed_length():
     assert got.shape == ref.shape == (1, 770, 1025)
     _close(got.numpy(), ref, "zoo/ar training-forward logits")
     np.testing.assert_allclose(got_losses["nll"].item(), ref_loss, rtol=1e-4)
+
+
+#: the top-2 margin below which either token counts as a match (ROADMAP.md §3)
+TIE_MARGIN = 0.1
+
+
+def test_zoo_ar_cached_decode_and_greedy_tokens():
+    """``zoo/ar`` at the serving buckets (text 50 with 30 valid, prompt 128
+    with 100 valid), B = 1: the prefill's last logits and 8 decode steps'
+    logits along JAX's greedy tokens, then 24 greedy tokens of
+    ``ar_generate``, identical up to a top-2 tie of the port's logits."""
+    flat, meta, ta = _load("ar")
+    ja = jax_get_model(meta["model"], meta["num_tokens"], {"remat": False}, dtype=jnp.float32)
+    jp = unflatten(flat)
+    del flat
+    text, tm, proms, pm, _ = _cond(5, TEXT, PROMPT, 30, 100)
+    n_steps, P = 24, TEXT + 1 + PROMPT + 1
+    ref_toks, ref_lens = jax_ar_generate(ja, jp, *[jnp.asarray(a) for a in (text, tm, proms, pm)],
+                                         jax.random.PRNGKey(0), max_steps=n_steps,
+                                         sampling_temperature=0.0)
+    ref_toks = np.array(ref_toks)
+    prefill = jax.jit(lambda p, *a: ja.apply(p, *a, P + 8, method=JaxAR.prefill))
+    step = jax.jit(lambda p, tok, c: ja.apply(p, tok, c, method=JaxAR.decode_step))
+    ref_logits, ref_cache = prefill(jp, text, tm, proms, pm)
+    refs = [np.asarray(ref_logits)]
+    for j in range(8):
+        lg, ref_cache = step(jp, ref_toks[:, j], ref_cache)
+        refs.append(np.asarray(lg))
+    del jp, ref_cache
+    port = [t(a).long() if a.dtype.kind == "i" else t(a) for a in (text, tm, proms, pm)]
+    with torch.no_grad():
+        logits, cache = ta.prefill(*port, P + 8)
+        gots = [logits.numpy()]
+        for j in range(8):
+            logits, cache = ta.decode_step(torch.as_tensor(ref_toks[:, j]).long(), cache)
+            gots.append(logits.numpy())
+        _close(np.stack(gots), np.stack(refs), "zoo/ar prefill + 8 decode-step logits")
+        toks, lens = ar_generate(ta, *port, None, max_steps=n_steps, sampling_temperature=0.0)
+    toks = toks.numpy()
+    diff = np.nonzero(toks[0] != ref_toks[0])[0]
+    print(f"zoo/ar greedy: {n_steps - len(diff)} of {n_steps} tokens identical")
+    if len(diff):  # a tie of the port's logits at the first divergence
+        d = int(diff[0])
+        with torch.no_grad():
+            full, _ = ta(*port, torch.as_tensor(ref_toks[:, :d]).long(), torch.ones(1, d))
+        top2 = full[0, P - 1 + d].topk(2).values
+        assert float(top2[0] - top2[1]) < TIE_MARGIN, (d, toks[0], ref_toks[0])
+    else:
+        assert int(lens[0]) == int(ref_lens[0])
 
 
 def test_zoo_maskgit_codes_under_injected_noise(monkeypatch):

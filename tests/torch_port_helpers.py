@@ -64,7 +64,8 @@ def t(a, dtype=None):
 class TableKeys:
     """Port-side stand-in for ``RowKeys``: ``fold(tag)`` selects a tag and
     ``gumbel(shape)`` / ``uniform(shape)`` return the table's noise for it,
-    so both packages sample from the same numbers."""
+    so both packages sample from the same numbers.  Tables are keyed by
+    (tag, rank) and hold (B, *shape) arrays."""
 
     def __init__(self, tables: dict, tag=None):
         self.tables, self.tag = tables, tag
@@ -73,7 +74,9 @@ class TableKeys:
         return TableKeys(self.tables, int(tag))
 
     def gumbel(self, shape, device="cpu"):
-        return torch.from_numpy(self.tables[(self.tag, len(shape))]).to(device)
+        arr = self.tables[(self.tag, len(shape))]
+        assert arr.shape[1:] == tuple(shape), (self.tag, arr.shape, shape)
+        return torch.from_numpy(arr).to(device)
 
     uniform = gumbel
 
@@ -81,26 +84,30 @@ class TableKeys:
 def patch_jax_noise(monkeypatch, module, tables: dict):
     """Make ``module``'s ``fold_rows`` carry the tag and its ``row_gumbel``
     and ``row_uniform`` return the same table as ``TableKeys`` (traced tags,
-    a MaskGIT step or an ancestral timestep, index a stacked table, so this
-    also works inside ``lax.scan``)."""
-    by_rank: dict[int, list] = {}
+    a MaskGIT step, an ancestral timestep or a speculative round's, index a
+    table stacked over tags, so this also works inside ``lax.scan`` and
+    ``lax.while_loop``).  Tables are stacked by the shape of one row's draw,
+    so draws of one rank and different shapes (the speculative loop's
+    Gumbel noise (V,) and acceptance uniforms (k,)) each find their own.
+    Functions jitted before the patch keep their traces: clear JAX's caches
+    (``jax.clear_caches()``) around a patched call of one."""
+    by_shape: dict[tuple, list] = {}
     for (tag, rank), arr in sorted(tables.items()):
-        by_rank.setdefault(rank, []).append((tag, arr))
+        by_shape.setdefault(arr.shape[1:], []).append((tag, arr))
     stacked = {}
-    for rank, items in by_rank.items():
+    for shape, items in by_shape.items():
         n = max(tag for tag, _ in items) + 1
-        shape = items[0][1].shape
-        full = np.zeros((n, *shape), np.float32)
+        full = np.zeros((n, items[0][1].shape[0], *shape), np.float32)
         for tag, arr in items:
             full[tag] = arr
-        stacked[rank] = jnp.asarray(full)
+        stacked[shape] = jnp.asarray(full)
 
     def fold_rows(row_keys, tag):
         B = row_keys.shape[0]
         return jnp.stack([jnp.full((B,), tag, jnp.int32), jnp.arange(B, dtype=jnp.int32)], 1)
 
     def row_gumbel(row_keys, shape, dtype=jnp.float32):
-        return stacked[len(shape)][row_keys[0, 0]].astype(dtype)
+        return stacked[tuple(shape)][row_keys[0, 0]].astype(dtype)
 
     monkeypatch.setattr(module, "fold_rows", fold_rows)
     monkeypatch.setattr(module, "row_gumbel", row_gumbel)

@@ -1,13 +1,23 @@
 """Zero-shot TTS inference CLI on the card (counterpart of ``__main__.py`` in
-the JAX package), for a D3PM diffusion bundle decoded with MaskGIT or the
-ancestral chain:
+the JAX package), for an AR or a D3PM diffusion first stage:
 
     python -m tts_with_diffusion_model_tpu_torch '<text>' ref.wav out.wav \\
-        --ar-ckpt zoo/diffusion --nar-ckpt zoo/nar [--device cuda] [--seed 0] \\
+        [--ar-ckpt zoo/ar] [--nar-ckpt zoo/nar] [--device cuda] [--seed 0] \\
+        [--max-ar-steps 1000] [--draft-ckpt <AR bundle> --spec-k 4] \\
         [--decode maskgit|ancestral] [--stride 3]
 
-``--stride`` above 1 alone selects the ancestral chain.  AR first stages are
-not ported yet and are rejected.
+The first stage is dispatched on the bundle's model family.  An AR decodes
+up to ``--max-ar-steps`` tokens over a KV cache, or speculatively with a
+``--draft-ckpt`` proposing ``--spec-k`` tokens per round (at
+``--temperature 0`` the target's own greedy decode).  A D3PM bundle decodes
+with MaskGIT or the ancestral chain; ``--stride`` above 1 alone selects the
+ancestral chain.
+
+Every request goes through ``serve.Synthesizer``, at its text bucket of 50
+phones and a 128-multiple prompt bucket.  The JAX CLI runs an AR unbucketed
+at B = 1; the pads are masked, so at temperature 0 both give the same
+tokens.  A text over the 50-phone bucket (long-form synthesis) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -17,12 +27,12 @@ from pathlib import Path
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser("D3PM TTS (PyTorch/CUDA)")
+    parser = argparse.ArgumentParser("VALL-E / D3PM TTS (PyTorch/CUDA)")
     parser.add_argument("text")
     parser.add_argument("reference", type=Path)
     parser.add_argument("out_path", type=Path)
-    parser.add_argument("--ar-ckpt", type=Path, default=Path("zoo/diffusion"),
-                        help="first-stage bundle (a D3PM diffusion bundle)")
+    parser.add_argument("--ar-ckpt", type=Path, default=Path("zoo/ar"),
+                        help="first-stage bundle (an AR or a D3PM diffusion bundle)")
     parser.add_argument("--nar-ckpt", type=Path, default=Path("zoo/nar"))
     parser.add_argument("--codec", type=Path, default=None,
                         help="converted EnCodec weights (.npz); default $ENCODEC_WEIGHTS, "
@@ -31,8 +41,15 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--nar-temperature", type=float, default=0.2)
+    parser.add_argument("--max-ar-steps", type=int, default=1000,
+                        help="most tokens an AR first stage decodes")
+    parser.add_argument("--draft-ckpt", type=Path, default=None,
+                        help="AR bundle that drafts --spec-k tokens per round for the AR "
+                             "first stage to verify in one forward (speculative decoding)")
+    parser.add_argument("--spec-k", type=int, default=4,
+                        help="draft tokens per speculative round")
     parser.add_argument("--decode", choices=("ancestral", "maskgit"), default=None,
-                        help="first-stage sampler (default: ancestral when --stride > 1, "
+                        help="D3PM sampler (default: ancestral when --stride > 1, "
                              "else maskgit)")
     parser.add_argument("--stride", type=int, default=1,
                         help="ancestral skip-step stride (3: 33 denoiser calls, not 99)")
@@ -49,10 +66,11 @@ def main(argv=None):
         synth = Synthesizer.from_bundles(
             args.ar_ckpt, args.nar_ckpt, find_weights(args.codec), device=args.device,
             bf16=not args.fp32, decode=args.decode, stride=args.stride,
-            maskgit_steps=args.maskgit_steps,
+            maskgit_steps=args.maskgit_steps, max_ar_steps=args.max_ar_steps,
+            draft_ckpt=args.draft_ckpt, spec_k=args.spec_k,
             temperature=args.temperature, nar_temperature=args.nar_temperature,
         )
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         parser.error(str(e))
     wav, sr = synth.synthesize(args.text, args.reference, seed=args.seed)
     write_wav(args.out_path, wav, sr)

@@ -5,8 +5,8 @@ The packed slot layout ``[ text (Tt) | sep | proms (Tp) | sep | resps (Tr) ]``
 with per-segment masks and packed positions ``cumsum(mask) - 1`` is kept as
 it is.  ``Base`` is the JAX constructor's trunk (causal or not, ``ln`` or
 ``adaln`` norms, an optional stop token, dropout, per-block remat) in batch
-mode; the AR KV-cache paths (``prefill``, ``decode_step``,
-``decode_chunk``) are not ported yet.
+mode, and the AR's KV-cache paths (``prefill``, ``decode_step``,
+``decode_chunk``) over a ``KVCache`` written in place.
 
 Dtypes follow flax's promotion so the port serves in the JAX package's
 precision: a ``Dense`` with a compute ``dtype`` casts input, weight and bias
@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import route
+from ..ops.attention import dense_attention
 
 
 class Dense(nn.Module):
@@ -165,7 +166,7 @@ class Attention(nn.Module):
     ``ops/route.attend``: keys are masked by the kernel (and, with
     ``causal``, hidden past the query's slot); padding query rows are zeroed
     by ``to_out(o) * mask``.  q, k and v are read in place from the fused
-    ``to_qkv`` output."""
+    ``to_qkv`` output.  ``decode`` is the cached path."""
 
     def __init__(self, d_model: int, n_heads: int, causal: bool = False, dtype=None):
         super().__init__()
@@ -173,12 +174,36 @@ class Attention(nn.Module):
         self.to_qkv = Dense(d_model, 3 * d_model, bias=False, dtype=dtype)
         self.to_out = Dense(d_model, d_model, dtype=dtype)
 
-    def forward(self, x, mask):
+    def _qkv(self, x):
         B, T, _ = x.shape
-        qkv = self.to_qkv(x).view(B, T, 3, self.n_heads, self.d_model // self.n_heads)
+        return self.to_qkv(x).view(B, T, 3, self.n_heads, self.d_model // self.n_heads)
+
+    def forward(self, x, mask, return_kv: bool = False):
+        B, T, _ = x.shape
+        qkv = self._qkv(x)
         o = route.attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask, causal=self.causal)
-        o = o.reshape(B, T, self.d_model)
-        return self.to_out(o) * mask[..., None].to(x.dtype)
+        o = self.to_out(o.reshape(B, T, self.d_model)) * mask[..., None].to(x.dtype)
+        return (o, (qkv[:, :, 1], qkv[:, :, 2])) if return_kv else o
+
+    def decode(self, x, cache_k, cache_v, index: int, kv_mask):
+        """Cached decode of W tokens (W = 1: a decode step; W > 1: the
+        speculative verify chunk).  x: (B, W, D); their k, v are written at
+        slots ``index .. index + W - 1`` of ``cache_{k,v}`` (B, Tc, H, Dh) in
+        place; ``kv_mask`` (B, Tc) marks the valid slots, the W new ones
+        included.  Query j sees the valid slots ``<= index + j``.  Only
+        ``cache[:, :index + W]`` is read: every later slot is masked, and a
+        masked score's ``exp(NEG_INF - max)`` is exactly 0."""
+        B, W, _ = x.shape
+        qkv = self._qkv(x)
+        n = index + W
+        cache_k[:, index:n] = qkv[:, :, 1]
+        cache_v[:, index:n] = qkv[:, :, 2]
+        pair = kv_mask[:, None, :n]
+        if W > 1:
+            slot = torch.arange(n, device=x.device)
+            pair = pair * (slot[None, :] <= index + torch.arange(W, device=x.device)[:, None])
+        o = dense_attention(qkv[:, :, 0], cache_k[:, :n], cache_v[:, :n], pair_mask=pair)
+        return self.to_out(o.reshape(B, W, self.d_model))
 
 
 class FeedForward(nn.Module):
@@ -228,6 +253,21 @@ class PrenormBlock(nn.Module):
         h = drop(self.ffn(self._norm(self.norm_ffn, x, level) * m, drop))
         return (x + h) * m
 
+    def prefill(self, x, mask, level):
+        """Deterministic batch forward that also returns this block's (k, v)
+        (B, T, H, Dh) for the cache."""
+        m = mask[..., None].to(x.dtype)
+        h, kv = self.attn(self._norm(self.norm_attn, x, level) * m, mask, return_kv=True)
+        x = (x + h) * m
+        return (x + self.ffn(self._norm(self.norm_ffn, x, level) * m)) * m, kv
+
+    def decode(self, x, cache_k, cache_v, index: int, kv_mask, level):
+        """Cached decode of x (B, W, D): no mask multiply, as in the JAX
+        package's ``decode_step`` / ``decode_chunk``."""
+        x = x + self.attn.decode(self._norm(self.norm_attn, x, level), cache_k, cache_v,
+                                 index, kv_mask)
+        return x + self.ffn(self._norm(self.norm_ffn, x, level))
+
 
 def packed_layout(text_mask, prom_mask, resp_mask):
     """Merged mask / packed positions / segment ids, each (B, Tt+1+Tp+1+Tr);
@@ -269,11 +309,10 @@ class Base(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
 
-    def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask,
-                resp_level_mask=None, quant_levels=None, generator=None):
-        """Logits (B, T, n_resp_tokens) over the merged layout.  A
-        ``generator`` turns dropout on (one seed per block is drawn from it);
-        without one the forward is deterministic."""
+    def _embed_merged(self, text, text_mask, proms, prom_mask, resps, resp_mask,
+                      resp_level_mask=None):
+        """The packed input (B, T, D) in the compute dtype, zero at padding
+        slots, and its mask (B, T)."""
         B = text.shape[0]
         text_e = self.text_emb(text)
         proms_e = self.proms_emb(proms)
@@ -283,7 +322,16 @@ class Base(nn.Module):
         x = torch.cat([text_e.to(dt), sep.to(dt), proms_e.to(dt), sep.to(dt), resps_e.to(dt)], dim=1)
         mask, pos, _ = packed_layout(text_mask, prom_mask, resp_mask)
         x = x + sinusoidal_embedding(pos, self.d_model)
-        x = x.to(self.dtype) * mask[..., None].to(self.dtype)
+        return x.to(self.dtype) * mask[..., None].to(self.dtype), mask
+
+    def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask,
+                resp_level_mask=None, quant_levels=None, generator=None):
+        """Logits (B, T, n_resp_tokens) over the merged layout.  A
+        ``generator`` turns dropout on (one seed per block is drawn from it);
+        without one the forward is deterministic."""
+        B = text.shape[0]
+        x, mask = self._embed_merged(text, text_mask, proms, prom_mask, resps, resp_mask,
+                                     resp_level_mask)
         level = quant_levels if quant_levels is not None else torch.zeros(B, dtype=torch.long, device=text.device)
         seeds = [None] * self.n_layers
         if generator is not None and self.p_dropout > 0:
@@ -295,6 +343,71 @@ class Base(nn.Module):
                  else block(x, mask, level, seed))
         logits = self.classifier(x.float())
         return logits * mask[..., None]
+
+    # ---------------- incremental AR decoding ----------------
+
+    @torch.no_grad()
+    def prefill(self, text, text_mask, proms, prom_mask, total_len: int):
+        """Run the ``[text | sep | prom | sep]`` prefix and fill a cache of
+        ``total_len`` slots (prefix + the steps to come) → (logits at the
+        second sep, slot ``prefix_len − 1``, (B, V) fp32; the cache)."""
+        B = text.shape[0]
+        resps = torch.zeros((B, 0, 1), dtype=torch.long, device=text.device)
+        x, mask = self._embed_merged(text, text_mask, proms, prom_mask, resps,
+                                     text_mask.new_zeros((B, 0)))
+        P = x.shape[1]
+        level = torch.zeros(B, dtype=torch.long, device=text.device)
+        cache = KVCache(mask, total_len)
+        for block in self.blocks():
+            x, (k, v) = block.prefill(x, mask, level)
+            cache.k.append(k.new_zeros((B, total_len, *k.shape[2:])))
+            cache.v.append(v.new_zeros((B, total_len, *v.shape[2:])))
+            cache.k[-1][:, :P] = k
+            cache.v[-1][:, :P] = v
+        return self.classifier(x[:, P - 1].float()), cache
+
+    def decode_step(self, token, cache: "KVCache"):
+        """One AR step: token (B,) → (logits (B, V) fp32, the cache, written
+        in place)."""
+        logits, cache = self.decode_chunk(token[:, None], cache.pos, cache)
+        return logits[:, 0], cache
+
+    @torch.no_grad()
+    def decode_chunk(self, tokens, pos0, cache: "KVCache"):
+        """Teacher-forced decode of tokens (B, W): row b's token j sits at
+        packed position ``pos0[b] + j`` and slot ``cache.index + j``.
+        Returns (logits (B, W, V) fp32, the cache): ``logits[:, j]`` is the
+        next-token distribution after ``tokens[:, :j + 1]``.  The W slots are
+        marked valid; the speculative caller re-masks rejected ones."""
+        B, W = tokens.shape
+        pos = pos0[:, None] + torch.arange(W, device=tokens.device)
+        emb = self.resps_emb.weight[0, tokens] + sinusoidal_embedding(pos, self.d_model)
+        x = emb.to(self.dtype)
+        index = cache.index
+        cache.mask[:, index:index + W] = 1
+        level = torch.zeros(B, dtype=torch.long, device=tokens.device)
+        for block, ck, cv in zip(self.blocks(), cache.k, cache.v):
+            x = block.decode(x, ck, cv, index, cache.mask, level)
+        cache.index += W
+        cache.pos += W
+        return self.classifier(x.float()), cache
+
+
+class KVCache:
+    """The AR's decode state: per-layer k and v (B, Tc, H, Dh) in the
+    compute dtype, the slots' validity (B, Tc), the next write slot
+    ``index`` (a host int: every row writes the same slot) and each row's
+    next packed position ``pos`` (B,).  Allocated once by ``prefill``; the
+    decode paths write it in place."""
+
+    def __init__(self, prefix_mask, total_len: int):
+        B, P = prefix_mask.shape
+        self.k: list[torch.Tensor] = []
+        self.v: list[torch.Tensor] = []
+        self.mask = prefix_mask.new_zeros((B, total_len))
+        self.mask[:, :P] = prefix_mask
+        self.index = P
+        self.pos = prefix_mask.sum(dim=1).long()
 
 
 IGNORE_INDEX = -100

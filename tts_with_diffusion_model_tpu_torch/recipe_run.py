@@ -5,7 +5,8 @@
 
 1. ``scripts/make_gen_corpus.py`` writes the mini corpus (32 speakers × 24
    utterances) under ``<workdir>/data/train``;
-2. ``emb.g2p`` and ``emb.qnt`` write its phones and codes;
+2. ``emb.g2p`` and ``emb.qnt`` write its phones and codes (1 and 2 are
+   skipped where an earlier run left the codes);
 3. the train CLI runs ``config/gen4c/diffusion.yml`` (2000 steps) and then
    ``nar.yml`` (600 steps), their data and outputs pointed into
    ``<workdir>``;
@@ -21,9 +22,28 @@
    fp32 with the same seeds: p50 per batch of 4, the share of identical
    codes bf16 against fp32, and the first denoiser call's logits.
 
-Writes ``<workdir>/report.json`` (and each step's log beside it) and prints
-a summary.  ``--tiny`` runs the same chain at a tiny size (2 speakers × 11
-utterances, 4 steps, d32 models), for a rehearsal on the CPU.
+With ``--ar`` it runs the AR chain instead, reusing the workdir's corpus,
+codes and NAR bundle when an earlier run left them (else making them as
+above):
+
+1. the train CLI runs ``config/gen4c/ar.yml`` (600 steps) and
+   ``ar_quarter.yml`` (800 steps), and the export CLI writes both at their
+   last step (``--ema``);
+2. a ``Synthesizer`` over the AR and NAR bundles answers the val
+   utterances at temperature 1.0 (``max_ar_steps`` 448): p50 per batch of
+   4, tokens per second, the lengths' distribution;
+3. the AR first stage alone, greedy at ``max_steps`` 192, plain and
+   speculative with the quarter draft at k = 2, 4, 6, 8: the fields of the
+   JAX package's record ``benchmarks/gen_r4/spec_decode_mini_v2.json``
+   (p50, tokens per second, rounds, accepted per round, acceptance rate,
+   identity with plain greedy, the first divergence and the top-2 margin of
+   the serving target's teacher-forced logits there), over batches of 4:
+   rounds summed over the batches, the per-round rates averaged.
+
+Writes ``<workdir>/report.json`` (``report_ar.json`` with ``--ar``; each
+step's log beside it) and prints a summary.  ``--tiny`` runs the same chain
+at a tiny size (2 speakers × 11 utterances, 4 steps, d32 models), for a
+rehearsal on the CPU.
 """
 
 from __future__ import annotations
@@ -50,14 +70,21 @@ TINY_D3PM = ["model_overrides={d_model: 32, n_heads: 2, n_layers: 2, timesteps: 
 TINY_NAR = ["model_overrides={d_model: 32, n_heads: 2, n_layers: 2}", "max_iter=4",
             "eval_every=2", "save_ckpt_every=2", "batch_size=4", "resp_len_buckets=[32]",
             "prom_len_buckets=[64]", "max_prom_len=128", "max_resp_len=64", "nj=1"]
+TINY_AR = [*TINY_NAR[1:], "model_overrides={d_model: 32, n_heads: 2, n_layers: 2}"]
+TINY_AR_QUARTER = [*TINY_NAR[1:], "model_overrides={d_model: 32, n_heads: 2, n_layers: 1}"]
 SEEDS = 16
+#: speculative chunk sizes of the JAX record, and its greedy max_steps
+SPEC_KS = (2, 4, 6, 8)
+SPEC_STEPS = 192
+#: the serving default's response bucket
+AR_SERVE_STEPS = 448
 
 
 class Run:
     """The chain's state: where it writes, the device and the report."""
 
     def __init__(self, workdir: Path, device: str, codec: Path | None, tiny: bool):
-        self.work, self.device, self.codec = Path(workdir), device, codec
+        self.work, self.device, self.codec, self.tiny = Path(workdir), device, codec, tiny
         self.data = self.work / "data" / "train"
         self.t0 = time.perf_counter()
         self.report: dict = {"device": device_name(device), "seconds": {}}
@@ -65,6 +92,9 @@ class Run:
                    f"ckpt_root={self.work / 'ckpts'}", f"device={device}"]
         self.d3pm = ["yaml=config/gen4c/diffusion.yml", *outputs, *(TINY_D3PM if tiny else [])]
         self.nar = ["yaml=config/gen4c/nar.yml", *outputs, *(TINY_NAR if tiny else [])]
+        self.ar = ["yaml=config/gen4c/ar.yml", *outputs, *(TINY_AR if tiny else [])]
+        self.ar_quarter = ["yaml=config/gen4c/ar_quarter.yml", *outputs,
+                           *(TINY_AR_QUARTER if tiny else [])]
 
     def log(self, msg: str):
         print(f"[{time.perf_counter() - self.t0:8.1f} s] {msg}", flush=True)
@@ -88,9 +118,9 @@ class Run:
                                + out.read_text()[-4000:])
         return out.read_text()
 
-    def save(self):
+    def save(self, name: str = "report.json"):
         self.report["wall_s"] = time.perf_counter() - self.t0
-        (self.work / "report.json").write_text(json.dumps(self.report, indent=1))
+        (self.work / name).write_text(json.dumps(self.report, indent=1))
 
 
 def device_name(device: str) -> str:
@@ -158,13 +188,14 @@ def val_spread(run: Run, steps: list[int]) -> dict:
     return out
 
 
-def requests(run: Run) -> list[tuple]:
-    """(text, reference wav, seed) per val utterance; the reference is the
-    speaker's first training utterance."""
+def requests(run: Run, argv: list[str] | None = None) -> list[tuple]:
+    """(text, reference wav, seed) per val utterance of the run ``argv``
+    (default: the D3PM's); the reference is the speaker's first training
+    utterance."""
     from .config import Config
     from .data.dataset import create_datasets
 
-    train_ds, val_ds = create_datasets(Config.from_cli(run.d3pm))
+    train_ds, val_ds = create_datasets(Config.from_cli(argv or run.d3pm))
     first = {}
     for p in sorted(Path(p) for p in train_ds.paths):
         first.setdefault(p.parent.name, p)
@@ -249,6 +280,139 @@ def first_call_logits(synth, rows: list[dict], t: int) -> np.ndarray:
     return logits[:, :gl].float().cpu().numpy()
 
 
+def _batches(synth, reqs, prepared):
+    """(prepared rows, seeds, the batch's device tensors) per batch of
+    ``synth.max_batch``."""
+    from .smoke_ar import batch_tensors
+
+    n = synth.max_batch
+    return [(prepared[b:b + n], [s for _, _, s in reqs[b:b + n]],
+             batch_tensors(synth, prepared[b:b + n])) for b in range(0, len(reqs), n)]
+
+
+def _timed(run: Run, fn):
+    run.sync()
+    t0 = time.perf_counter()
+    out = fn()
+    run.sync()
+    return out, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def serve_ar(run: Run, zoo: Path, serve_steps: int, spec_steps: int) -> dict:
+    """The val utterances through the AR first stage (bf16, the serving
+    precision): time to wav at temperature 1.0, then greedy plain against
+    greedy speculative with the quarter draft at each of ``SPEC_KS``."""
+    from .convert import cast_params_bf16
+    from .models.ar import ar_generate, ar_generate_speculative
+    from .serve import Synthesizer, check_draft, load_model
+    from .smoke_ar import first_divergence, spec_stats, top2_margin
+    from .utils.rng import RowKeys
+
+    reqs = requests(run, run.ar)
+    synth = Synthesizer.from_bundles(zoo / "ar", zoo / "nar", run.codec, device=run.device,
+                                     max_batch=min(BATCH, len(reqs)), max_ar_steps=serve_steps,
+                                     temperature=1.0)
+    target = synth.first
+    draft = load_model(zoo / "ar-quarter")[0]
+    check_draft(target, draft)
+    draft = cast_params_bf16(draft.to(synth.device).eval())
+    prepared = [synth.prepare(t, r) for t, r, _ in reqs]
+    batches = _batches(synth, reqs, prepared)
+    times, lengths = [], []
+    for rows, seeds, _ in batches:
+        (codes, wavs), secs = _timed(run, lambda: synth._device_batch(rows, seeds))
+        if not all(np.isfinite(w).all() for w in wavs):
+            raise RuntimeError("AR serving: non-finite samples")
+        times.append(secs)
+        lengths += [len(c) for c in codes]
+    out = {"served_requests": len(reqs), "batch": synth.max_batch, "max_ar_steps": serve_steps,
+           "serve_p50_ms": float(np.median(times[1:] or times)) * 1e3,
+           "serve_tok_s": sum(lengths) / sum(times), "lengths": lengths,
+           "lengths_p10_p50_p90": [float(np.percentile(lengths, q)) for q in (10, 50, 90)],
+           "stopped_share": float(np.mean([n < serve_steps for n in lengths]))}
+    run.log(f"AR serving: p50 {out['serve_p50_ms']:.1f} ms per batch of {synth.max_batch}, "
+            f"lengths p10/p50/p90 {out['lengths_p10_p50_p90']}")
+
+    def greedy(fn):
+        toks, times, lens, stats = [], [], [], []
+        for rows, seeds, batch in batches:
+            res, secs = _timed(run, lambda: fn(batch, RowKeys.from_seeds(seeds).fold(0)))
+            toks.append(res[0])
+            lens.append(res[1])
+            stats.append(res[2] if len(res) > 2 else None)
+            times.append(secs)
+        n = int(sum(int(x.sum()) for x in lens))
+        return toks, lens, stats, {"p50_ms": float(np.median(times[1:] or times)) * 1e3,
+                                   "tok_s": n / sum(times)}
+
+    plain_toks, plain_lens, _, plain = greedy(lambda batch, keys: ar_generate(
+        target, *batch, keys, max_steps=spec_steps, sampling_temperature=0.0))
+    out["greedy"] = {"max_steps": spec_steps, "plain_p50_ms": plain["p50_ms"],
+                     "plain_tok_s": plain["tok_s"], "k": {}}
+    for k in SPEC_KS:
+        toks, lens, stats, timing = greedy(lambda batch, keys, k=k: ar_generate_speculative(
+            target, draft, *batch, keys, max_steps=spec_steps, k=k, with_stats=True))
+        per_batch = [spec_stats(st, k) for st in stats]
+        entry = {**timing, "speedup": plain["p50_ms"] / timing["p50_ms"],
+                 "rounds": sum(st["rounds"] for st in per_batch),
+                 **{key: float(np.mean([st[key] for st in per_batch]))
+                    for key in ("accepted_per_round", "acceptance_rate")},
+                 "identical": True, "first_divergence": None,
+                 "first_divergence_request": None, "tie_margin": None}
+        for bi, (_, _, batch) in enumerate(batches):
+            div = first_divergence(plain_toks[bi], plain_lens[bi], toks[bi], lens[bi])
+            if div is not None:
+                entry.update(identical=False, first_divergence=div[1],
+                             first_divergence_request=bi * synth.max_batch + div[0],
+                             tie_margin=top2_margin(target, batch, plain_toks[bi], *div))
+                break
+        out["greedy"]["k"][k] = entry
+        run.log(f"speculative k={k}: {json.dumps(entry)}")
+    return out
+
+
+def prepare_data(run: Run, device: str, tiny: bool) -> None:
+    """The corpus, its phones and its codes, unless an earlier run left the
+    codes in the workdir."""
+    if any(run.data.rglob("*.qnt.npy")):
+        run.log(f"reusing the corpus and codes under {run.data}")
+        return
+    if not any(run.data.glob("spk*")):
+        run.step("corpus", "scripts/make_gen_corpus.py", str(run.data),
+                 *(["--speakers", "2", "--utts", "11"] if tiny else []))
+    run.step("g2p", "-m", f"{PKG}.emb.g2p", str(run.data))
+    codec_env = {"ENCODEC_WEIGHTS": str(run.codec)} if run.codec else {}
+    run.step("qnt", "-m", f"{PKG}.emb.qnt", str(run.data), "--device", device, env=codec_env)
+
+
+def run_ar(run: Run, device: str, tiny: bool) -> dict:
+    """The AR chain (module docstring)."""
+    prepare_data(run, device, tiny)
+    zoo = run.work / "zoo"
+    if (zoo / "nar" / "model.json").exists():
+        run.log(f"reusing the NAR bundle {zoo / 'nar'}")
+    else:
+        run.report["nar"] = parse_train_log(run.step("train_nar", "-m", f"{PKG}.train", *run.nar))
+        nar_step = max(s for s, _ in run.report["nar"]["val"])
+        run.step("export_nar", "-m", f"{PKG}.export", str(zoo / "nar"), *run.nar,
+                 f"restore_step={nar_step}", "--ema")
+    exported = {}
+    for name, argv in (("ar", run.ar), ("ar-quarter", run.ar_quarter)):
+        run.report[name] = log = parse_train_log(run.step(f"train_{name}", "-m", f"{PKG}.train",
+                                                          *argv))
+        run.save("report_ar.json")
+        step = max(s for s, _ in log["val"])
+        run.step(f"export_{name}", "-m", f"{PKG}.export", str(zoo / name), *argv,
+                 f"restore_step={step}", "--ema")
+        exported[name] = {"step": step, "val_loss": dict(log["val"])[step]}
+    run.report["exported"] = exported
+    run.report["ar_serve"] = serve_ar(run, zoo, 24 if tiny else AR_SERVE_STEPS,
+                                      16 if tiny else SPEC_STEPS)
+    run.save("report_ar.json")
+    return run.report
+
+
 def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("workdir", type=Path)
@@ -257,6 +421,10 @@ def main(argv: list[str] | None = None) -> dict:
                         help="converted EnCodec weights (default: as emb.qnt finds them)")
     parser.add_argument("--tiny", action="store_true",
                         help="2 speakers, 4 steps, d32 models: a CPU rehearsal")
+    parser.add_argument("--ar", action="store_true",
+                        help="the AR chain (train ar and ar-quarter, export, serve, "
+                             "speculative decoding), reusing the workdir's corpus, codes and "
+                             "NAR bundle")
     args = parser.parse_args(argv)
     from .codec.encodec import find_weights
     from .utils.device import resolve_device
@@ -265,13 +433,11 @@ def main(argv: list[str] | None = None) -> dict:
     run = Run(args.workdir, args.device, find_weights(args.codec), args.tiny)
     run.work.mkdir(parents=True, exist_ok=True)
     run.log(f"{run.report['device']}; codec weights {run.codec}")
-    if not any(run.data.glob("spk*")):
-        run.step("corpus", "scripts/make_gen_corpus.py", str(run.data),
-                 *(["--speakers", "2", "--utts", "11"] if args.tiny else []))
-    run.step("g2p", "-m", f"{PKG}.emb.g2p", str(run.data))
-    codec_env = {"ENCODEC_WEIGHTS": str(run.codec)} if run.codec else {}
-    run.step("qnt", "-m", f"{PKG}.emb.qnt", str(run.data), "--device", args.device,
-             env=codec_env)
+    if args.ar:
+        report = run_ar(run, args.device, args.tiny)
+        print(json.dumps(report["ar_serve"] | {"exported": report["exported"]}, default=str))
+        return report
+    prepare_data(run, args.device, args.tiny)
     run.report["d3pm"] = parse_train_log(run.step("train_d3pm", "-m", f"{PKG}.train", *run.d3pm))
     run.save()
     run.report["nar"] = parse_train_log(run.step("train_nar", "-m", f"{PKG}.train", *run.nar))

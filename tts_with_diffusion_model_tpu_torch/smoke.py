@@ -357,10 +357,12 @@ def path_totals(results: list[dict], sites: list[Site], launches_run: int) -> di
 
 
 def kernel_summary(results: list[dict], launches: int, eval_results=None,
-                   eval_launches: int | None = None, paths: dict | None = None) -> dict:
+                   eval_launches: int | None = None, paths: dict | None = None,
+                   checked=()) -> dict:
     """The kernel's line: per-batch sums over the main path's timed sites;
     with ``eval_results``, also per NAR val-loss eval batch, and the other
-    ``paths`` (``path_totals``), under ``paths``."""
+    ``paths`` (``path_totals``), under ``paths``; the errors of the sites in
+    ``checked`` count in ``max_abs_err`` too."""
     serving = batch_totals(results)
     line = {
         "name": "masked_attention",
@@ -368,7 +370,7 @@ def kernel_summary(results: list[dict], launches: int, eval_results=None,
         "source": "tts_with_diffusion_model_tpu_torch/csrc/masked_attention.cu",
         "replaces": REPLACES,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in [*results, *(eval_results or [])]
+        "max_abs_err": max(r["max_abs_err"] for r in [*results, *(eval_results or []), *checked]
                            if r["dtype"] == "bfloat16"),
         **{k: serving[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per": "one batch call of the main path: sum over its attention sites of launches x time",

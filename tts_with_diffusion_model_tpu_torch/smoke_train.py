@@ -82,6 +82,10 @@ class TrainSite:
     bwd: int
     path: str = "d3pm"
     fused: bool = False
+    #: (text bucket, prompt bucket): the key mask of the AR prefill's packed
+    #: layout (text pads and prompt pads mid-row, both seps valid) instead of
+    #: ragged prefixes, holes and an all-masked row
+    layout: tuple[int, int] | None = None
 
 
 def train_attention_sites(model, B: int, resp_bucket: int) -> list[TrainSite]:
@@ -203,6 +207,8 @@ def _site_inputs(s: TrainSite, dtype, device, seed):
     else:
         q, k, v, do = (torch.randn(s.B, T, s.H, s.Dh, generator=g).to(dtype).to(device)
                        for T in (s.Tq, s.Tk, s.Tk, s.Tq))
+    if s.layout is not None:
+        return q, k, v, prefix_mask(s.B, *s.layout, g).to(device), do
     mask = torch.ones(s.B, s.Tk)
     if s.B > 1:
         mask[1, int(torch.randint(1, s.Tk + 1, (1,), generator=g)):] = 0
@@ -212,6 +218,37 @@ def _site_inputs(s: TrainSite, dtype, device, seed):
     if s.B > 3:
         mask[3] = 0
     return q, k, v, mask.to(device), do
+
+
+def prefix_mask(B: int, text_len: int, prompt_bucket: int, g) -> torch.Tensor:
+    """(B, text + 1 + prompt + 1) key mask of AR prefills: each row's valid
+    phones and prompt frames (at least 3 and 1) then pads, both seps valid."""
+    rows = []
+    for _ in range(B):
+        nt = int(torch.randint(3, text_len + 1, (1,), generator=g))
+        n_p = int(torch.randint(1, prompt_bucket + 1, (1,), generator=g))
+        rows.append(torch.cat([(torch.arange(text_len) < nt).float(), torch.ones(1),
+                               (torch.arange(prompt_bucket) < n_p).float(), torch.ones(1)]))
+    return torch.stack(rows)
+
+
+def ar_prefill_sites(prompt_buckets, timed_bucket: int, text_len: int = 50, B: int = 4,
+                     layers: int = 12) -> list[TrainSite]:
+    """Kernel 2's forward at the AR serving prefill (causal, forward only):
+    the registry ``ar`` (16 heads of 64) at each prompt bucket, one launch
+    per block per batch at ``timed_bucket`` (path "ar serve"), and the
+    ``ar-quarter`` draft's (4 heads of 64) at ``timed_bucket`` (path "ar
+    serve draft", run by speculative serving only)."""
+    sites = []
+    for pb in prompt_buckets:
+        T = text_len + 1 + pb + 1
+        fwd = layers if pb == timed_bucket else 0
+        sites.append(TrainSite("AR prefill causal self", B, T, T, 16, 64, True, fwd, 0,
+                               path="ar serve", fused=True, layout=(text_len, pb)))
+    T = text_len + 1 + timed_bucket + 1
+    sites.append(TrainSite("ar-quarter prefill causal self", B, T, T, 4, 64, True, layers, 0,
+                           path="ar serve draft", fused=True, layout=(text_len, timed_bucket)))
+    return sites
 
 
 def _fwd_bwd(fn, q, k, v, km, causal, do):
@@ -316,12 +353,14 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
 
 
 def phase_train_kernel_check(device, sites: list[TrainSite], seed: int = 0) -> list[dict]:
-    """Every site in fp32 and bf16; times in bf16, the training dtype."""
+    """Every site in fp32 and bf16; times in bf16, the training dtype, at
+    the sites a path launches."""
     with full_fp32():
         results = []
         for s in sites:
             for dtype in (torch.float32, torch.bfloat16):
-                r = check_train_site(s, dtype, device, seed, time_it=dtype == torch.bfloat16)
+                timed = dtype == torch.bfloat16 and bool(s.fwd or s.bwd)
+                r = check_train_site(s, dtype, device, seed, time_it=timed)
                 results.append(r)
                 log(json.dumps(r))
                 if "vs_library_fwd" in r:
@@ -385,7 +424,8 @@ def train_kernel_summary(results: list[dict], runs: list[tuple[str, int, int, in
     launches per step, launches counted over the path's run) for each train
     path driven; each path gets its per-step sums over its timed sites, and
     the top level sums one step of every path.  ``eval_runs``, alike per
-    eval batch, are listed under ``paths`` but not summed."""
+    eval or serving batch (the AR's val loss, the AR prefill), are listed
+    under ``paths`` but not summed."""
     paths = {}
     for path, fwd, bwd, run_launches in [*runs, *eval_runs]:
         timed = [r for r in results if r["path"] == path and "ms_fwd" in r and (r["fwd"] or r["bwd"])]
