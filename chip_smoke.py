@@ -16,16 +16,22 @@ the exported NAR decoding up to 448 tokens per request over a KV cache
 (prefill on kernel 2's forward, the NAR on kernel 1), with greedy
 speculative decoding held token for token against plain greedy in fp32 (the
 target as its own draft, and a seeded ar-quarter draft) and compared in
-bf16.  Builds every CUDA kernel from the
-sources in this checkout with ``nvcc`` and counts the wgmma (HGMMA) and TMA
-(UTMALDG) instructions in each library, holds each kernel against its plain
-PyTorch version at every shape these paths give it (printing each site's
-kernel/SDPA and kernel/bound ratios), checks that the training backward is
-deterministic, and checks that each path launched its kernels the number
-of times its config says.  Weights are drawn from ``--seed`` unless
-``--zoo`` loads the committed serving bundles.  Prints each phase's
-seconds as it goes; the last lines are the kernels' JSON, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+bf16; then serve http: the HTTP server (``make_server`` with a ``Batcher``)
+over the exported D3PM and NAR answering concurrent ``/tts`` requests, a
+long-form ``/tts_stream``, an overload burst shed with 503 and a drain with
+a request in flight, ``/stats`` and the kernel launches per device batch
+checked, then a concurrent burst over the exported AR, and each request's
+fp32 codes held identical alone and inside a cohort of 4.  Builds every
+CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
+wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
+kernel against its plain PyTorch version at every shape these paths give it
+(printing each site's kernel/SDPA and kernel/bound ratios), checks that the
+training backward is deterministic, and checks that each path launched its
+kernels the number of times its config says.  Weights are drawn from
+``--seed`` unless ``--zoo`` loads the committed serving bundles.  Prints
+each phase's seconds as it goes; the last lines are the kernels' JSON, the
+card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 Exits non-zero, with no result, when CUDA is unavailable or any phase fails.
 """
 
@@ -51,7 +57,13 @@ def main() -> int:
 
     try:
         import torch
-        from tts_with_diffusion_model_tpu_torch import smoke, smoke_ar, smoke_export, smoke_train
+        from tts_with_diffusion_model_tpu_torch import (
+            smoke,
+            smoke_ar,
+            smoke_export,
+            smoke_serve,
+            smoke_train,
+        )
     except ImportError as e:
         print(f"chip_smoke: FAILED: cannot import the port ({e})", file=sys.stderr)
         return 2
@@ -141,6 +153,7 @@ def main() -> int:
         if what != "maskgit":
             paths[what] = smoke.path_totals(results, r["sites"], r["launches"])
     nar_bundle = es["exports"]["nar"]["path"]
+    d3pm_bundle = es["exports"]["diffusion"]["path"]
     del es
     torch.cuda.empty_cache()
     # the card-trained AR, exported at step 8 and served over the exported NAR
@@ -159,7 +172,24 @@ def main() -> int:
                              launches_run=served["launches"]["kernel1"])
     eval_runs += [("ar serve", 12, 0, served["launches"]["kernel2"]),
                   ("ar serve draft", 12, 0, ar["spec"]["fp32 quarter"]["kernel2"] - 12)]
+    ar_bundle = ar["export"]["path"]
     del ar, served
+    torch.cuda.empty_cache()
+    # the HTTP server over the exported bundles: D3PM traffic, then AR
+    with smoke.phase("serve http"):
+        sh = smoke_serve.phase_serve_http(device, d3pm_bundle, nar_bundle, ar_bundle,
+                                          seed=args.seed, smi=info["smi"])
+    paths["serve http"] = dict(smoke.batch_totals(results),
+                               launches_run=sh["d3pm"]["launches"]["kernel1"],
+                               batches=sh["d3pm"]["stats"]["batches"])
+    paths["serve http ar"] = dict(smoke.batch_totals(ar_nar_results),
+                                  launches_run=sh["ar"]["launches"]["kernel1"],
+                                  batches=sh["ar"]["stats"]["batches"])
+    # kernel 2's server prefill runs the "ar serve" sites
+    train_results += [dict(r, path="serve http ar") for r in train_results
+                      if r["path"] == "ar serve"]
+    eval_runs.append(("serve http ar", 12, 0, sh["ar"]["launches"]["kernel2"]))
+    del sh
     torch.cuda.empty_cache()
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
                                     paths, checked=ar_nar_results),

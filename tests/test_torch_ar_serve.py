@@ -9,8 +9,8 @@ tiny AR and NAR bundles written by the JAX package's exporter:
   and the cut to each row's length); the port's codes do not depend on the
   cohort at temperature 1 (a request alone and inside a batch of 3);
 - the CLI on an AR bundle with and without ``--draft-ckpt``, and its
-  refusals (a draft that is not an AR, another vocabulary, a text over the
-  text bucket);
+  refusals (a draft that is not an AR, another vocabulary, a long text with
+  a negative long-form segment budget);
 - the prompt cache under 4 threads: never above its capacity, every code
   array equal to a single-threaded encode."""
 
@@ -209,14 +209,13 @@ def test_cli_refusals(bundles, tmp_path, capsys, monkeypatch, small_codec, case,
 
     monkeypatch.setattr(encodec, "load_codec", lambda *a, **kw: small_codec)
     args = _cli(bundles, tmp_path / "out.wav")
-    if case == "long_text":
+    if case == "long_text":  # long-form runs (tests/test_torch_longform.py); a bad budget does not
         args[0] = " ".join(["the quick brown fox jumps over the lazy dog"] * 4)
-        with pytest.raises(NotImplementedError, match=match):
-            main(args)
-        return
-    draft = bundles / ("nar" if case == "nar_draft" else "ar512")
+        extra = ["--segment-phones", "-3"]
+    else:
+        extra = ["--draft-ckpt", str(bundles / ("nar" if case == "nar_draft" else "ar512"))]
     with pytest.raises(SystemExit) as e:
-        main(args + ["--draft-ckpt", str(draft)])
+        main(args + extra)
     assert e.value.code == 2 and match in capsys.readouterr().err
 
 

@@ -124,7 +124,8 @@ def test_port_and_chip_smoke_import_without_jax():
     for mod in ("train.__main__", "train.train", "train.trainer", "train.engine", "config",
                 "data.dataset", "data.sampler", "utils.config_base", "utils.logging",
                 "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
-                "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export", "smoke_ar"):
+                "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export", "smoke_ar",
+                "serve", "longform", "smoke_serve"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

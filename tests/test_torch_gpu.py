@@ -2,8 +2,10 @@
 versions (the training kernel forward and backward) at the main paths'
 shapes and at ragged edges, the training backward's determinism, a tiny
 serving batch (MaskGIT and ancestral) that must go through the kernels, the
-ancestral chain's per-row uniforms and tight bucket on the card, and a tiny
-train step that must go through the training kernel.
+ancestral chain's per-row uniforms and tight bucket on the card, a tiny
+train step that must go through the training kernel, and the serving
+runtime: a tiny ``Batcher`` cohort whose fp32 codes equal each request's
+solo run, and a long-form ``/tts_stream`` that returns every chunk.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -479,3 +481,42 @@ def test_tiny_ar_serving_batch_goes_through_both_kernels(cuda):
                         bf16=False, max_ar_steps=32)
     out = serve_ar_and_check(synth, smoke.make_requests(2, 0.5, seed=1), "gpu test", repeats=1)
     assert out["launches"]["kernel2"] == 2 and out["launches"]["kernel1"] == 14
+
+
+@pytest.mark.gpu
+def test_tiny_batcher_cohort_on_the_card_gives_each_request_its_solo_codes(cuda):
+    """A tiny fp32 Synthesizer on the card behind a ``Batcher``: each of 4
+    requests alone, then all 4 in one cohort; every batch goes through
+    kernel 1 (no plain call) and the cohort's codes equal the solo ones."""
+    from tts_with_diffusion_model_tpu_torch.smoke_serve import cohort_check
+
+    synth, nar_dims = smoke.build_synthesizer(cuda, "tiny", zoo=False, seed=0, max_batch=4)
+    per_batch = smoke.expected_launches(smoke.attention_sites(synth.first.config, nar_dims,
+                                                              synth.denoiser_calls, 64))
+    masked_attention.launches = masked_attention.plain_calls = 0
+    out = cohort_check(synth, smoke.reference_wavs(3, 0.5, seed=61), 0, "gpu test",
+                       assert_equal=True)
+    assert out["identical"] and out["share"] == 1.0
+    assert masked_attention.launches == 5 * per_batch and masked_attention.plain_calls == 0
+
+
+@pytest.mark.gpu
+def test_tiny_long_form_stream_on_the_card_returns_every_chunk(cuda):
+    """POST /tts_stream of a 3-segment text to a tiny server on the card:
+    every chunk arrives, each equal to ``synthesize_stream``'s in L16."""
+    from tts_with_diffusion_model_tpu_torch.smoke_serve import LONG_TEXT, Served, pcm, stream
+
+    synth, _ = smoke.build_synthesizer(cuda, "tiny", zoo=False, seed=0, max_batch=4)
+    ref = smoke.reference_wavs(1, 0.5, seed=62)[0]
+    served = Served(synth)
+    try:
+        st = stream(served.port, {"text": LONG_TEXT, "reference": str(ref), "seed": 2})
+    finally:
+        served.drain()
+    assert st["status"] == 200 and st["end"] is not None
+    want = list(synth.synthesize_stream(LONG_TEXT, ref, 2))
+    assert len(st["chunks"]) == len(want) == 3
+    for c, w in zip(st["chunks"], want):
+        got = np.frombuffer(c, ">i2").astype(np.int32)
+        assert got.shape == (synth.gen_len * 320,)
+        assert np.abs(got - pcm(w)).max() <= 1

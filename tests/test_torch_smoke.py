@@ -290,3 +290,35 @@ def test_ar_prefill_sites_and_their_layout_masks():
     assert [r["max_abs_err"] for r in res] == [0.0, 0.0]
     line = smoke_train.train_kernel_summary(res, [], [("ar serve", 2, 0, 2)])
     assert line["paths"]["ar serve"]["launches"] == 2 and line["launches"] == 0
+
+
+def test_serve_http_phase_rehearsal(tmp_path):
+    """The serve http phase over tiny seeded bundles through the plain
+    versions: the D3PM server's bursts, stream, overload, /stats, plain
+    calls per batch and drain; the fp32 cohort identity; the AR burst."""
+    from tts_with_diffusion_model_tpu_torch import smoke_serve
+    from tts_with_diffusion_model_tpu_torch.codec.encodec import Codec
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+
+    bundles = smoke_serve.write_seeded_bundles(tmp_path, "tiny", seed=0)
+    codec_model = smoke.tiny_models()[3]
+    init_seeded(codec_model, 3)
+    out = smoke_serve.phase_serve_http(CPU, *bundles, codec=Codec(codec_model, CPU),
+                                       ref_seconds=0.5, max_ar_steps=16)
+    d3pm = out["d3pm"]
+    assert d3pm["per_batch"] == 4 + 12 * 2 * 3 + 7 * 2
+    assert d3pm["launches"]["kernel1_plain"] == d3pm["stats"]["batches"] * d3pm["per_batch"]
+    assert d3pm["stream"]["chunks"] == 3 and d3pm["overload"]["shed"] >= 1
+    assert d3pm["stats"]["rejected"] == d3pm["overload"]["shed"]
+    assert out["cohort fp32"]["identical"] and out["cohort fp32"]["share"] == 1.0
+    assert out["ar"]["launches"]["kernel2_plain"] == 2 * out["ar"]["stats"]["batches"]
+    assert set(out["first_request_s"]) == {"without_warmup", "warmup", "after_warmup"}
+
+
+def test_serve_http_alone_refuses_without_cuda():
+    from tts_with_diffusion_model_tpu_torch import smoke_serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(smoke.SmokeError, match="cuda.is_available"):
+        smoke_serve.main([])

@@ -4,7 +4,7 @@ the JAX package), for an AR or a D3PM diffusion first stage:
     python -m tts_with_diffusion_model_tpu_torch '<text>' ref.wav out.wav \\
         [--ar-ckpt zoo/ar] [--nar-ckpt zoo/nar] [--device cuda] [--seed 0] \\
         [--max-ar-steps 1000] [--draft-ckpt <AR bundle> --spec-k 4] \\
-        [--decode maskgit|ancestral] [--stride 3]
+        [--decode maskgit|ancestral] [--stride 3] [--segment-phones N]
 
 The first stage is dispatched on the bundle's model family.  An AR decodes
 up to ``--max-ar-steps`` tokens over a KV cache, or speculatively with a
@@ -13,11 +13,13 @@ up to ``--max-ar-steps`` tokens over a KV cache, or speculatively with a
 with MaskGIT or the ancestral chain; ``--stride`` above 1 alone selects the
 ancestral chain.
 
-Every request goes through ``serve.Synthesizer``, at its text bucket of 50
-phones and a 128-multiple prompt bucket.  The JAX CLI runs an AR unbucketed
-at B = 1; the pads are masked, so at temperature 0 both give the same
-tokens.  A text over the 50-phone bucket (long-form synthesis) is not
-ported yet.
+Every request goes through ``serve.Synthesizer``, at its text bucket (50
+phones for an AR, the bundle's ``text_len`` for a D3PM) and a 128-multiple
+prompt bucket.  The JAX CLI runs an AR unbucketed at B = 1; the pads are
+masked, so at temperature 0 both give the same tokens.  A text over the
+text bucket is synthesized in chained segments with one decode of the
+joined codes (``longform.py``); ``--segment-phones N`` forces that path
+with at most N phones per segment.
 """
 
 from __future__ import annotations
@@ -56,7 +58,13 @@ def main(argv=None):
     parser.add_argument("--maskgit-steps", type=int, default=12)
     parser.add_argument("--fp32", action="store_true",
                         help="keep fp32 weights (default: bf16 serving precision)")
+    parser.add_argument("--segment-phones", type=int, default=None,
+                        help="force long-form synthesis with this per-segment phone budget "
+                             "(long-form engages by itself over the first stage's text bucket)")
     args = parser.parse_args(argv)
+    if args.segment_phones is not None and args.segment_phones < 0:
+        parser.error(f"--segment-phones {args.segment_phones}: a long-form segment needs at "
+                     "least one phone (0: the text bucket)")
 
     from .audio.wavio import write_wav
     from .codec.encodec import find_weights
@@ -72,7 +80,13 @@ def main(argv=None):
         )
     except (NotImplementedError, ValueError) as e:
         parser.error(str(e))
-    wav, sr = synth.synthesize(args.text, args.reference, seed=args.seed)
+    if args.segment_phones is not None:
+        from .longform import synthesize_long
+
+        wav, sr = synthesize_long(synth, args.text, args.reference, seed=args.seed,
+                                  max_segment_phones=args.segment_phones)
+    else:
+        wav, sr = synth.synthesize(args.text, args.reference, seed=args.seed)
     write_wav(args.out_path, wav, sr)
     print(args.out_path, "saved.")
 

@@ -282,14 +282,14 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
 
 @contextlib.contextmanager
 def full_fp32():
-    """Matmuls in full fp32 inside the block (the plain version is the
-    reference; TF32 would round its products)."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Matmuls and cuDNN convolutions in full fp32 inside the block (the
+    plain version is the reference; TF32 would round its products)."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def _check_and_log(site: Site, B: int, dtype, device, seed: int, timed: bool,
