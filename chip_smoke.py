@@ -21,7 +21,15 @@ over the exported D3PM and NAR answering concurrent ``/tts`` requests, a
 long-form ``/tts_stream``, an overload burst shed with 503 and a drain with
 a request in flight, ``/stats`` and the kernel launches per device batch
 checked, then a concurrent burst over the exported AR, and each request's
-fp32 codes held identical alone and inside a cohort of 4.  Builds every
+fp32 codes held identical alone and inside a cohort of 4; then train
+gen4b: ``config/gen4b/diffusion.yml``, ``nar.yml`` and ``ar.yml`` (B=64) 4
+steps each on the native C++ loader with an eval tick at step 4 that
+decodes audio (``eval_decode_audio``: the D3PM's ancestral chain and the
+NAR on kernel 1, the AR's prefill on kernel 2's forward, each eval decode's
+launches checked against its sites, hyp / ref wavs and ``metrics.json``),
+then a 2-step D3PM run traced with ``profile_every``; then remat policies: a gen4c
+D3PM and NAR step under each ``gradient_checkpointing_policy`` with every
+gradient held to whole-block recompute's.  Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
 wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
 kernel against its plain PyTorch version at every shape these paths give it
@@ -61,6 +69,7 @@ def main() -> int:
             smoke,
             smoke_ar,
             smoke_export,
+            smoke_gen4b,
             smoke_serve,
             smoke_train,
         )
@@ -91,12 +100,22 @@ def main() -> int:
         ar_nar_results = smoke.phase_site_check(
             device, smoke_ar.nar_site(cfg.text_len, 256, smoke_ar.MAX_STEPS, nar_dims),
             len(smoke.TEXTS), seed=args.seed)
+        # the gen4b eval decode's sites: the D3PM's ancestral chain at B=32
+        # (the NAR's are the eval site's above, 84 launches a batch)
+        decode = {f: smoke_gen4b.decode_sites(y) for f, y in smoke_gen4b.RECIPES.items()}
+        d3pm_decode_results = [r for site in decode["d3pm"]["sites"] for r in smoke.phase_site_check(
+            device, site, decode["d3pm"]["B"], seed=args.seed)]
+        nar_decode = decode["nar"]["sites"][0]
+        smoke.check((nar_decode.Tq, nar_decode.H, nar_decode.Dh, decode["nar"]["B"]) ==
+                    (eval_site.Tq, eval_site.H, eval_site.Dh, eval_B),
+                    "the NAR eval decode's site is not the NAR eval site")
     with smoke.phase("train kernel vs plain"):
         train_cfg, train_model = smoke_train.recipe(smoke_train.TRAIN_YAML)
         train_sites = smoke_train.step_sites(train_model, train_cfg)
         ar_sites = smoke_train.ar_prefill_sites((128, 256, 384, 398), timed_bucket=256)
         train_results = smoke_train.phase_train_kernel_check(
-            device, [*train_sites, *smoke_train.packed_sites(), *ar_sites], seed=args.seed)
+            device, [*train_sites, *smoke_train.packed_sites(), *ar_sites,
+                     *decode["ar"]["sites"], *smoke_gen4b.train_sites()], seed=args.seed)
         smoke_train.check_backward_determinism(
             next(s for s in train_sites if s.name == "DiT self"), device, seed=args.seed)
     with smoke.phase("slice"):
@@ -137,11 +156,31 @@ def main() -> int:
             eval_runs.append(("ar eval", tr["eval_per_batch"], 0, tr["eval_launches"]))
         del tr
         torch.cuda.empty_cache()
+    # the gen4b recipes at B=64, with the eval decode, then the remat policies
+    with smoke.phase("train gen4b"):
+        g4 = smoke_gen4b.phase_gen4b(device, seed=args.seed, smi=info["smi"])
+    for family, r in g4.items():
+        eval_runs.append((f"gen4b {family}", r["fwd_per_step"], r["bwd_per_step"],
+                          r["run_launches"]))
+    decode_paths = {"eval decode d3pm": dict(
+        smoke.batch_totals(d3pm_decode_results),
+        launches_run=sum(d["kernel1"] for d in g4["d3pm"]["decodes"]))}
+    decode_paths["eval decode nar"] = smoke.path_totals(
+        eval_results, [smoke.Site(eval_site.name, eval_site.Tq, eval_site.Tk, eval_site.H,
+                                  eval_site.Dh, nar_decode.count)],
+        sum(d["kernel1"] for d in g4["nar"]["decodes"]))
+    eval_runs.append(("eval decode ar", decode["ar"]["expected"], 0,
+                      sum(d["kernel2_fwd"] for d in g4["ar"]["decodes"])))
+    del g4
+    torch.cuda.empty_cache()
+    with smoke.phase("remat policies"):
+        smoke_gen4b.phase_remat(device, seed=args.seed, smi=info["smi"])
+    torch.cuda.empty_cache()
     # the card-trained D3PM and NAR, exported at step 8 and served three ways
     with smoke.phase("export -> serve"):
         es = smoke_export.phase_export_serve(device, argvs["d3pm"], argvs["nar"], 8,
                                              seed=args.seed, repeats=args.repeats)
-    paths = {}
+    paths = dict(decode_paths)
     for what, want in (("maskgit", 376), ("ancestral stride 1", 2464),
                        ("ancestral stride 3", 880)):
         r = es["served"][what]
@@ -192,7 +231,7 @@ def main() -> int:
     del sh
     torch.cuda.empty_cache()
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
-                                    paths, checked=ar_nar_results),
+                                    paths, checked=[*ar_nar_results, *d3pm_decode_results]),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

@@ -235,8 +235,9 @@ def test_registry_refuses_bad_names():
         get_model("tts")
     with pytest.raises(NotImplementedError, match="Gaussian"):
         get_model("diffusion-gaussian")
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        get_model("ar-quarter", 64, {"remat_policy": "dots"})
+    # every policy JAX knows is ported; an unknown one raises as JAX's does
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        get_model("ar-quarter", 64, {"remat_policy": "dot"})
 
 
 @pytest.mark.parametrize("family", ["ar", "nar"])

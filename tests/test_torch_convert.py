@@ -125,7 +125,8 @@ def test_port_and_chip_smoke_import_without_jax():
                 "data.dataset", "data.sampler", "utils.config_base", "utils.logging",
                 "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
                 "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export", "smoke_ar",
-                "serve", "longform", "smoke_serve"):
+                "serve", "longform", "smoke_serve", "data.native_loader", "utils.profiling",
+                "utils.metrics", "utils.diagnostic"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

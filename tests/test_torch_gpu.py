@@ -5,7 +5,8 @@ serving batch (MaskGIT and ancestral) that must go through the kernels, the
 ancestral chain's per-row uniforms and tight bucket on the card, a tiny
 train step that must go through the training kernel, and the serving
 runtime: a tiny ``Batcher`` cohort whose fp32 codes equal each request's
-solo run, and a long-form ``/tts_stream`` that returns every chunk.
+solo run, and a long-form ``/tts_stream`` that returns every chunk; the
+gen4b eval decode and train sites, and the remat policies on the card.
 
 They import neither jax nor the JAX package, so they also run on a machine
 that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -520,3 +521,65 @@ def test_tiny_long_form_stream_on_the_card_returns_every_chunk(cuda):
         got = np.frombuffer(c, ">i2").astype(np.int32)
         assert got.shape == (synth.gen_len * 320,)
         assert np.abs(got - pcm(w)).max() <= 1
+
+
+def _gen4b_decode_sites():
+    from tts_with_diffusion_model_tpu_torch import smoke_gen4b
+
+    return {f: smoke_gen4b.decode_sites(y) for f, y in smoke_gen4b.RECIPES.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_decode_sites_match_plain(cuda, dtype):
+    """The gen4b eval decode's new sites: the D3PM's ancestral chain at
+    B=32 (towers and the three DiT attentions over the 448-slot bucket) on
+    kernel 1, and the AR's 962-slot causal prefill at B=32 on kernel 2's
+    forward, each against its plain version (the smoke's checks)."""
+    from tts_with_diffusion_model_tpu_torch import smoke_train
+
+    sites = _gen4b_decode_sites()
+    for site in sites["d3pm"]["sites"]:
+        smoke.check_site(site, sites["d3pm"]["B"], dtype, cuda, seed=0, time_it=False)
+    for site in sites["ar"]["sites"]:
+        smoke_train.check_train_site(site, dtype, cuda, seed=0, time_it=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gen4b_train_sites_at_b64_match_plain(cuda, dtype):
+    from tts_with_diffusion_model_tpu_torch import smoke_gen4b, smoke_train
+
+    for site in smoke_gen4b.train_sites():
+        smoke_train.check_train_site(site, dtype, cuda, seed=0, time_it=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["d3pm", "nar"])
+def test_remat_policies_give_null_gradients_on_the_card(cuda, family):
+    """A tiny D3PM and NAR step (bf16 compute, kernel 2 forward and
+    backward) under each policy: every gradient equal to whole-block
+    recompute's within fp32 rounding, and the same kernel-2 launches."""
+    import dataclasses
+
+    from tts_with_diffusion_model_tpu_torch import smoke_gen4b, smoke_train
+    from tts_with_diffusion_model_tpu_torch.config import Config
+    from tts_with_diffusion_model_tpu_torch.train.train import build_model, make_bucket
+
+    yaml = smoke_train.TRAIN_YAML if family == "d3pm" else smoke_train.NAR_YAML
+    base = Config.from_cli([f"yaml={yaml}", "batch_size=4", "nj=1", "resp_len_buckets=[32]",
+                            "prom_len_buckets=[64]", "max_prom_len=128", "max_resp_len=64",
+                            "model_overrides={d_model: 128, n_heads: 2, n_layers: 2, timesteps: 8, "
+                            "text_len: 50, prom_len: 64, resp_len: 48}"])
+    with torch.device("meta"):
+        bucket = make_bucket(base, build_model(base))
+    batch = smoke_gen4b._remat_batch(base, bucket, seed=0)
+    runs = {p: smoke_gen4b.remat_step(dataclasses.replace(base, gradient_checkpointing_policy=p),
+                                      cuda, batch, seed=0) for p in smoke_gen4b.POLICIES}
+    ref = runs[None]
+    assert ref["launches"][0] > 0 and ref["launches"][2] == 0
+    for policy, r in runs.items():
+        assert r["launches"] == ref["launches"], policy
+        for g, g0 in zip(r["grads"], ref["grads"]):
+            err = (g - g0).abs().max().item()
+            assert err <= smoke_gen4b.REMAT_TOL * max(1.0, g0.abs().max().item()), policy

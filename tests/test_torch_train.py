@@ -43,7 +43,7 @@ from tts_with_diffusion_model_tpu_torch.train import train as port_train
 from tts_with_diffusion_model_tpu_torch.train.engine import Engine, Engines
 from tts_with_diffusion_model_tpu_torch.train.trainer import StdinCommands
 
-from torch_port_helpers import flatten, seeded_flax_params, t, unflatten
+from torch_port_helpers import flatten, seeded_flax_params, small_codec, t, unflatten  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(n_classes=33, d_model=32, n_heads=2, n_layers=1, timesteps=6, resp_len=12,
@@ -171,6 +171,68 @@ def test_three_engine_steps_match_optax(tmp_path, accum):
     assert moved > 1e-4  # the updates were applied
 
 
+def _not_text_emb(path):
+    return "text_emb" not in path
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_trainable_filter_freezes_and_clips_over_the_trainable_only(tmp_path, accum):
+    """``trainable_filter`` on the JAX path: with clipping active, three
+    steps leave ``text_emb`` bit for bit and move the rest as optax's
+    ``multi_transform`` over clip + Adam (under ``MultiSteps``) does, the
+    clipping norm taken over the trainable gradients only; frozen
+    parameters hold no Adam state."""
+    flat, grad_fn = _jax_model()
+    params = unflatten(flat)
+    pm = DiffusionModel(DiffusionConfig(**KW), dtype=torch.float32)
+    jax_params_to_torch(flat, pm.denoiser)
+    opt_cfg = dict(_opt_cfg(accum), gradient_clipping=1e-3)
+    rs = np.random.RandomState(6)
+    batches = [_batch(i) for i in range(3)]
+    ts = [rs.randint(1, KW["timesteps"], 2) for _ in range(3)]
+    noises = [rs.rand(2, 12, 33).astype(np.float32) for _ in range(3)]
+
+    tx, _ = make_optimizer(opt_cfg, params, _not_text_emb)
+    state = tx.init(params)
+    update = jax.jit(lambda g, s, p: tx.update(g, s, p))
+    ref_grads = []
+    for i in range(3):
+        b = {k: jnp.asarray(v) for k, v in batches[i].items()}
+        _, grads = grad_fn(params, b, jnp.asarray(ts[i]), jnp.asarray(noises[i]))
+        ref_grads.append(flatten(grads))
+        updates, state = update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    trainable = {k: v for k, v in ref_grads[0].items() if _not_text_emb(k)}
+    assert float(optax.global_norm(trainable)) > 1e-3  # the clip is active
+
+    port_grads = []
+    for g in ref_grads:
+        holder = DiffusionModel(DiffusionConfig(**KW), dtype=torch.float32)
+        jax_params_to_torch(g, holder.denoiser)
+        port_grads.append([x.detach() for x in holder.parameters()])
+    calls = iter(range(3))
+
+    def loss_fn(module, batch, generator):
+        i = next(calls)
+        loss, stats = module.loss(batch, generator, q_noise=t(noises[i]), t=t(ts[i]))
+        carry = sum((p * g).sum() for p, g in zip(module.parameters(), port_grads[i]))
+        return loss.detach() + carry - carry.detach(), stats
+
+    before = pm.denoiser.text_emb.weight.detach().clone()
+    engine = Engine("model", pm, loss_fn, opt_cfg, tmp_path, trainable_filter=_not_text_emb)
+    for i in range(3):
+        engine.train_batch(batches[i], None)
+    assert torch.equal(pm.denoiser.text_emb.weight, before)
+    frozen = [p for p, keep in zip(engine.params, engine.trainable) if not keep]
+    assert frozen == [pm.denoiser.text_emb.weight]
+    assert all(id(p) not in {id(q) for q in frozen} for p in engine.optimizer.state)
+    got = _unprefixed(torch_params_to_jax(pm))
+    for k, r in flatten(params).items():
+        np.testing.assert_allclose(got[k.removeprefix("params/")], r, atol=PARAM_TOL, err_msg=k)
+    moved = max(float(np.abs(got[k] - flat[f"params/{k}"]).max()) for k in got)
+    assert moved > 1e-4
+
+
 def test_checkpoint_round_trip_and_retention(tmp_path):
     pm = DiffusionModel(DiffusionConfig(**KW), dtype=torch.float32)
     smoke_init = torch.Generator().manual_seed(0)
@@ -236,7 +298,7 @@ def test_python_loader_batches_are_identical_to_the_jax_loader(corpus, buckets):
 def _write_yaml(tmp_path, corpus, **extra):
     cfg = dict(cfg_name="tiny", data_dirs=[str(corpus)], spkr_name_getter="parts:-2", model="diffusion",
                model_overrides=dict(d_model=32, n_heads=2, n_layers=2, timesteps=8,
-                                    resp_len=48, text_len=16, prom_len=64),
+                                    resp_len=48, text_len=16, prom_len=64, gen_len=40),
                batch_size=2, eval_batch_size=4, max_iter=10, eval_every=100,
                save_ckpt_every=0, min_phones=3, max_num_val=4, nj=1, ema_decay=0.9,
                warmup_max_lr=1e-3, warmup_num_steps=2, log_root=str(tmp_path / "logs"),
@@ -283,11 +345,42 @@ def test_train_cli_on_cpu_through_stdin_then_resume(tmp_path, corpus):
 @pytest.mark.parametrize("knob", ["eval_decode_audio=true", "profile_every=2", "zero1=true",
                                   "mesh_dp=4", "cache_dataloader=true",
                                   "gradient_checkpointing_policy=dots"])
-def test_unported_knobs_are_rejected_by_name(tmp_path, corpus, knob):
-    cfg = Config.from_cli([f"yaml={_write_yaml(tmp_path, corpus)}", "device=cpu", knob])
-    with pytest.raises(NotImplementedError, match=knob.split("=")[0].replace(
-            "gradient_checkpointing_policy", "remat_policy")):
-        port_train.main(cfg)
+def test_unported_knobs_are_rejected_by_name(tmp_path, corpus, knob, small_codec, monkeypatch):
+    """``zero1`` and a mesh are still refused by name; the other knobs are
+    ported and a two-step run with each does what JAX's does: hyp / ref
+    wavs and ``metrics.json`` (the keys JAX's
+    ``test_train_main_eval_decode_audio`` asserts), a parsable trace under
+    ``profile/step_2``, the dataset cache file, the ``dots`` policy."""
+    from tts_with_diffusion_model_tpu_torch.codec import encodec
+
+    monkeypatch.chdir(tmp_path)  # the dataset cache is .cache/<cfg_name>
+    monkeypatch.setattr(encodec, "load_codec", lambda *a, **kw: small_codec)
+    cfg = Config.from_cli([f"yaml={_write_yaml(tmp_path, corpus)}", "device=cpu", knob,
+                           "max_iter=2", "eval_every=2"])
+    name = knob.split("=")[0]
+    if name in ("zero1", "mesh_dp"):
+        with pytest.raises(NotImplementedError, match=name):
+            port_train.main(cfg)
+        return
+    engines = port_train.main(cfg)
+    assert engines.global_step == 2
+    if name == "eval_decode_audio":
+        wavs = list(Path(cfg.log_dir).rglob("*.wav"))
+        assert any("ref" in str(w) for w in wavs) and any("hyp" in str(w) for w in wavs)
+        for split in ("subtrain", "val"):
+            blob = json.loads((Path(cfg.log_dir) / "2" / split / "metrics.json").read_text())
+            assert blob["mean"]["n_utts"] >= 1 and blob["mean"]["name"] == split
+            assert 0.0 <= blob["mean"]["acc"] <= 1.0 and blob["mean"]["mcd"] >= 0.0
+            assert len(blob["per_utt"]) == blob["mean"]["n_utts"]
+    elif name == "profile_every":
+        traces = list((Path(cfg.log_dir) / "profile").iterdir())
+        assert [t.name for t in traces] == ["step_2"]
+        events = json.loads((traces[0] / "trace.json").read_text())["traceEvents"]
+        assert any(e.get("name") == "ProfilerStep" or e.get("ph") == "X" for e in events)
+    elif name == "cache_dataloader":
+        assert len(list((tmp_path / ".cache" / "tiny").glob("datasets-*.json"))) == 1
+    else:
+        assert engines["model"].module.denoiser.remat_context is not torch.utils.checkpoint.noop_context_fn
 
 
 def test_stdin_commands_read_one_line_per_poll_and_stop_at_end_of_stream():

@@ -3,7 +3,8 @@
 ``model_overrides``: three steps, a checkpoint and the val-loss eval, then
 a second run that resumes from it; the feeders' draws (the NAR's levels,
 dropout in training and in eval) come from the step's and the eval's
-generators; unported knobs are refused by name."""
+generators; ``eval_decode_audio`` and ``gradient_checkpointing_policy``
+run for both families."""
 
 import json
 import subprocess
@@ -19,6 +20,8 @@ from tts_with_diffusion_model_tpu_torch import smoke_train
 from tts_with_diffusion_model_tpu_torch.config import Config
 from tts_with_diffusion_model_tpu_torch.models import get_model
 from tts_with_diffusion_model_tpu_torch.train import train as port_train
+
+from torch_port_helpers import small_codec  # noqa: F401 (fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = ["ar", "nar"]
@@ -81,11 +84,32 @@ def test_train_cli_three_steps_checkpoint_then_resume(tmp_path, corpus, family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("knob", ["eval_decode_audio=true", "gradient_checkpointing_policy=dots"])
-def test_unported_knobs_are_refused_by_name(tmp_path, corpus, family, knob):
-    cfg = Config.from_cli([f"yaml={_write_yaml(tmp_path, corpus, family)}", "device=cpu", knob])
-    with pytest.raises(NotImplementedError, match=knob.split("=")[0].replace(
-            "gradient_checkpointing_policy", "remat_policy")):
-        port_train.main(cfg)
+def test_unported_knobs_are_refused_by_name(tmp_path, corpus, family, knob, small_codec,
+                                            monkeypatch):
+    """Both knobs are ported now: three steps with ``eval_decode_audio``
+    write hyp / ref wavs and ``metrics.json`` for subtrain and val (the
+    NAR's level 0 reported as teacher-provided), and ``dots`` trains under
+    the selective-recompute policy."""
+    from tts_with_diffusion_model_tpu_torch.codec import encodec
+
+    monkeypatch.setattr(encodec, "load_codec", lambda *a, **kw: small_codec)
+    cfg = Config.from_cli([f"yaml={_write_yaml(tmp_path, corpus, family)}", "device=cpu", knob,
+                           "max_val_ar_steps=8"])
+    engines = port_train.main(cfg)
+    assert engines.global_step == 3
+    if knob.startswith("gradient_checkpointing_policy"):
+        assert engines["model"].module.base.remat_context is not \
+            torch.utils.checkpoint.noop_context_fn
+        return
+    for split in ("subtrain", "val"):
+        out = Path(cfg.log_dir) / "3" / split
+        blob = json.loads((out / "metrics.json").read_text())
+        # wavs are named by utterance stem, as JAX names them (speakers share stems)
+        assert blob["mean"]["n_utts"] >= len(list((out / "ref").glob("*.wav"))) >= 1
+        assert 0.0 <= blob["mean"]["acc"] <= 1.0
+        assert ("level0_acc_teacher" in blob["per_utt"][0]) == (family == "nar")
+        if list((out / "hyp").glob("*.wav")):
+            assert np.isfinite(blob["mean"]["mcd"]) and blob["mean"]["mcd"] >= 0.0
 
 
 def _tiny_batch(B=3):

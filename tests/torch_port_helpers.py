@@ -115,6 +115,19 @@ def patch_jax_noise(monkeypatch, module, tables: dict):
         monkeypatch.setattr(module, "row_uniform", row_gumbel)
 
 
+@pytest.fixture(scope="module")
+def small_codec():
+    """A seeded tiny codec on the CPU, for ``encodec.load_codec`` in tests
+    that decode audio (the full codec on the CPU would dominate them)."""
+    from tts_with_diffusion_model_tpu_torch import smoke
+    from tts_with_diffusion_model_tpu_torch.codec.encodec import Codec
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+
+    model = smoke.tiny_models()[3]
+    init_seeded(model, 2)
+    return Codec(model, "cpu")
+
+
 @pytest.fixture
 def one_thread(monkeypatch):
     """One intra-op thread for the test, and ``OMP_NUM_THREADS=1`` for the

@@ -109,6 +109,9 @@ class Config(ConfigBase):
     gradient_accumulation_steps: int = 1
     sampling_temperature: float = 1.0
 
+    # memoize dataset construction (discovery, phone validation, symmaps)
+    # to cache_dir (data/dataset.py create_datasets); delete cache_dir after
+    # changing the data
     cache_dataloader: bool = False
 
     # static-shape bucket bounds (the reference pads per batch)
@@ -120,7 +123,8 @@ class Config(ConfigBase):
     mesh_dp: int = -1
     mesh_tp: int = 1
 
-    # periodic profiler trace capture: not ported yet (rejected by train.py)
+    # periodic torch.profiler trace capture: every N steps, record
+    # `profile_n_steps` steps under log_dir/profile/step_<N>.  None = off.
     profile_every: int | None = None
     profile_n_steps: int = 3
 
@@ -142,8 +146,9 @@ class Config(ConfigBase):
     # lifts the trainable batch ceiling at ~1 extra forward of compute
     gradient_checkpointing: bool = True
 
-    # remat granularity: null = recompute whole blocks (the only value
-    # ported; "dots" is rejected by models/dit.py)
+    # remat granularity (models/base.resolve_remat_policy): null = recompute
+    # whole blocks; "dots" saves the projections' matmul outputs, "dots_all"
+    # every matmul's, "nothing" saves nothing
     gradient_checkpointing_policy: str | None = None
 
     # DiT self-attention implementation in the JAX package (null/"dense" =
@@ -156,8 +161,9 @@ class Config(ConfigBase):
     # smoke-test models: {d_model: 64, n_layers: 2})
     model_overrides: dict | None = None
 
-    # C++ prefetching data loader in the JAX package: not ported yet, the
-    # port logs that it takes the Python loader (data/dataset.py)
+    # the C++ prefetching data loader (native/dataloader.cc via
+    # data/native_loader.py); the Python loader when the dataset has no
+    # .qnt.npy files or there is no g++
     use_native_loader: bool = True
 
     # Length-bucketed training batches (data/dataset.py
@@ -178,6 +184,10 @@ class Config(ConfigBase):
     # dispatch overlaps device work (train/engine.py Engines.step); off =
     # exact per-step timing, the reference's cuda.synchronize semantics
     async_stats: bool = False
+
+    @property
+    def cache_dir(self) -> Path:
+        return Path(".cache") / self.relpath
 
     @property
     def get_spkr(self):

@@ -117,12 +117,22 @@ def torch_params_to_jax(module: torch.nn.Module,
     out = {}
     for name, p in module.named_parameters():
         val = p if tensors is None else tensors[name]
-        prefix, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(prefix) if prefix else module
-        flax_leaf, arr = _flax_leaf(owner, leaf, val.detach().float().cpu().numpy())
-        key = "/".join([*prefix.split("."), flax_leaf]) if prefix else flax_leaf
+        key, arr = _flax_item(module, name, val.detach().float().cpu().numpy())
         out[key] = np.ascontiguousarray(arr)
     return out
+
+
+def _flax_item(module: torch.nn.Module, name: str, val) -> tuple[str, np.ndarray]:
+    prefix, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(prefix) if prefix else module
+    flax_leaf, arr = _flax_leaf(owner, leaf, val)
+    return ("/".join([*prefix.split("."), flax_leaf]) if prefix else flax_leaf), arr
+
+
+def tree_path(module: torch.nn.Module, name: str) -> str:
+    """The ``/``-joined flax path (no leading ``params/``) of ``module``'s
+    parameter ``name``: ``base.text_emb.weight`` → ``base/text_emb/embedding``."""
+    return _flax_item(module, name, np.empty(0))[0]
 
 
 def init_seeded(module: torch.nn.Module, seed: int) -> None:

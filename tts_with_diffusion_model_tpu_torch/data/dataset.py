@@ -18,8 +18,9 @@ The on-disk contract and split semantics are the JAX package's:
 
 All of it is host code drawing from seeded ``random.Random`` streams, so
 with the same seed (and one loader thread) the port yields the same batches
-as the JAX package's Python loader.  The C++ loader and the dataset
-construction cache of the JAX package are not ported.
+as the JAX package's Python loader.  Training batches come from the C++
+loader (``native_loader.py``) by default, as in the JAX package; dataset
+construction can be memoized to ``cfg.cache_dir`` (``cache_dataloader``).
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ class VALLEDataset:
         max_prompts: int = 6,
         extra_paths_by_spkr_name: dict | None = None,
         seed: int = 0,
+        skip_validation: bool = False,
     ):
         self.get_spkr = get_spkr
         self.min_phones = min_phones
@@ -118,7 +120,10 @@ class VALLEDataset:
         self._head: int | None = None
         self.rng = random.Random(seed)
 
-        self.paths = [p for p in paths if validate_path(p, min_phones, max_phones)]
+        if skip_validation:  # paths come pre-validated from the disk cache
+            self.paths = list(paths)
+        else:
+            self.paths = [p for p in paths if validate_path(p, min_phones, max_phones)]
         if len(self.paths) == 0 and training:
             raise ValueError("No valid path found for training.")
 
@@ -284,6 +289,9 @@ class DataLoader:
     sequentially once.
     """
 
+    #: which loader makes the training batches (``NativeDataLoader``: "native")
+    kind = "python"
+
     def __init__(self, dataset: VALLEDataset, batch_size: int, bucket: BucketSpec,
                  training: bool = True, drop_last: bool | None = None,
                  nj: int = 4, prefetch: int = 4):
@@ -392,6 +400,10 @@ class LengthBucketedLoader:
     def dataset(self):
         return self.base.dataset
 
+    @property
+    def kind(self) -> str:
+        return self.base.kind
+
     def close(self):
         close = getattr(self.base, "close", None)
         if close is not None:
@@ -440,18 +452,33 @@ class LengthBucketedLoader:
                 yield out
 
 
-def create_datasets(cfg):
-    """Train and val datasets from ``cfg.data_dirs`` (≡ ``data.py:244-263``)."""
-    train_paths, val_paths = load_train_val_paths(cfg.data_dirs, cfg.get_spkr)
+def _dataset_cache_file(cfg) -> Path:
+    """Cache file of ``create_datasets`` (the JAX package's name for the same
+    cfg), keyed on the construction inputs only: the cache does not watch
+    the filesystem, so delete ``cfg.cache_dir`` after changing the data."""
+    import hashlib
+    import json
+
+    payload = json.dumps([sorted(str(d) for d in cfg.data_dirs), cfg.min_phones,
+                          cfg.max_phones, cfg.spkr_name_getter, cfg.max_num_val])
+    digest = hashlib.sha256(payload.encode()).hexdigest()[:16]
+    return Path(cfg.cache_dir) / f"datasets-{digest}.json"
+
+
+def _datasets(cfg, train_paths, val_paths, phone_symmap=None, spkr_symmap=None,
+              skip_validation=False):
     train_dataset = VALLEDataset(
         train_paths,
         cfg.get_spkr,
+        phone_symmap=phone_symmap,
+        spkr_symmap=spkr_symmap,
         min_phones=cfg.min_phones,
         max_phones=cfg.max_phones,
         training=True,
         p_additional_prompt=cfg.p_additional_prompt,
         max_prompts=cfg.max_prompts,
         seed=cfg.seed + _process_offset(),
+        skip_validation=skip_validation,
     )
     val_dataset = VALLEDataset(
         val_paths,
@@ -463,10 +490,39 @@ def create_datasets(cfg):
         p_additional_prompt=cfg.p_additional_prompt,
         max_prompts=cfg.max_prompts,
         extra_paths_by_spkr_name=train_dataset.paths_by_spkr_name,
+        skip_validation=skip_validation,
     )
     val_dataset.interleaved_reorder_(cfg.get_spkr)
     val_dataset.head_(cfg.max_num_val)
+    return train_dataset, val_dataset
 
+
+def create_datasets(cfg):
+    """Train and val datasets from ``cfg.data_dirs`` (≡ ``data.py:244-263``).
+    With ``cfg.cache_dataloader`` the discovery, phone validation and
+    symmaps are written to ``_dataset_cache_file(cfg)`` (JSON, as the JAX
+    package writes it) and read back on later runs."""
+    import json
+
+    cache_file = _dataset_cache_file(cfg) if cfg.cache_dataloader else None
+    if cache_file is not None and cache_file.exists():
+        blob = json.loads(cache_file.read_text())
+        _logger.info(f"Dataset construction restored from {cache_file}")
+        return _datasets(cfg, [Path(p) for p in blob["train_paths"]],
+                         [Path(p) for p in blob["val_paths"]], blob["phone_symmap"],
+                         blob["spkr_symmap"], skip_validation=True)
+
+    train_dataset, val_dataset = _datasets(cfg, *load_train_val_paths(cfg.data_dirs,
+                                                                      cfg.get_spkr))
+    if cache_file is not None:
+        cache_file.parent.mkdir(parents=True, exist_ok=True)
+        cache_file.write_text(json.dumps(dict(
+            train_paths=[str(p) for p in train_dataset.paths],
+            val_paths=[str(p) for p in val_dataset.paths],
+            phone_symmap=train_dataset.phone_symmap,
+            spkr_symmap=train_dataset.spkr_symmap,
+        )))
+        _logger.info(f"Dataset construction cached to {cache_file}")
     return train_dataset, val_dataset
 
 
@@ -484,11 +540,21 @@ def create_train_val_dataloader(cfg, bucket: BucketSpec | None = None):
     bucket = bucket or BucketSpec(cfg.max_text_len, cfg.max_prom_len, cfg.max_resp_len)
     train_dataset, val_dataset = create_datasets(cfg)
 
-    if getattr(cfg, "use_native_loader", True):
-        _logger.info("The native C++ loader is not ported; using the Python loader")
-    train_dl = DataLoader(
-        train_dataset, cfg.batch_size, bucket, training=True, nj=cfg.nj
-    )
+    train_dl = None
+    if cfg.use_native_loader:
+        # the JAX package's two reasons to take the Python loader: a dataset
+        # without .qnt.npy files, and no g++
+        from .native_loader import NativeDataLoader, NoCompiler
+
+        try:
+            train_dl = NativeDataLoader(train_dataset, cfg.batch_size, bucket,
+                                        n_workers=max(1, min(cfg.nj, 4)),
+                                        seed=cfg.seed + _process_offset() * 7919)
+        except (FileNotFoundError, NoCompiler) as e:
+            _logger.info(f"Native loader unavailable ({e}); using the Python loader")
+    if train_dl is None:
+        train_dl = DataLoader(train_dataset, cfg.batch_size, bucket, training=True, nj=cfg.nj)
+    _logger.info(f"Training batches from the {train_dl.kind} loader")
     resp_buckets = getattr(cfg, "resp_len_buckets", None)
     if resp_buckets:
         train_dl = LengthBucketedLoader(

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .base import Base, build_targets, masked_cross_entropy, refuse_remat_policy, sample_categorical
+from .base import Base, build_targets, masked_cross_entropy, sample_categorical
 
 #: token positions between the host's checks that every row has stopped
 EXIT_CHECK_STEPS = 16
@@ -35,11 +35,10 @@ class AR(nn.Module):
         """``attn_impl`` is read for compatibility: every attention takes the
         route of ``ops/route.py`` whatever it says."""
         super().__init__()
-        refuse_remat_policy(remat_policy)
         self.n_tokens = n_tokens
         self.base = Base(n_tokens, d_model, n_heads, n_layers, p_dropout=p_dropout,
                          causal=True, n_resp_levels=1, use_stop_token=True, norm_type="ln",
-                         remat=remat, dtype=dtype)
+                         remat=remat, remat_policy=remat_policy, dtype=dtype)
 
     @property
     def stop_token(self) -> int:

@@ -24,12 +24,14 @@ generators' states).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..ops import route
 from ..ops.attention import dense_attention
@@ -132,12 +134,34 @@ class AdaLN(nn.Module):
         return (torch.exp(log_gamma) * h + beta).to(x.dtype)
 
 
-def refuse_remat_policy(remat_policy) -> None:
-    """Only whole-block recompute (``remat_policy: null``) is ported."""
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue 1, \"what is "
-            "left of training\"); use null (whole-block recompute)")
+#: matmuls without batch dims (every Dense projection) and batched ones
+#: (attention scores and values on the plain path)
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+_BATCHED_MATMULS = frozenset({torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default})
+_REMAT_SAVED = {"dots": _MATMULS, "dots_all": _MATMULS | _BATCHED_MATMULS}
+
+
+def resolve_remat_policy(name: str | None):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a config string
+    (the JAX package's ``jax.checkpoint_policies``): ``None`` and
+    ``"nothing"`` → whole-block recompute; ``"dots"`` saves every matmul
+    without batch dims (the Dense projections: ``aten.mm`` / ``aten.addmm``)
+    and recomputes the rest, attention included, which is the O(T²) memory
+    remat exists to shed; ``"dots_all"`` also saves the batched matmuls.
+    Gradients are the same under every policy; only the recompute / memory
+    trade moves.  The attention kernels run in the recompute whatever the
+    policy: they are no matmul op."""
+    if name is None or name == "nothing":
+        return noop_context_fn
+    if name not in _REMAT_SAVED:
+        raise ValueError(f"unknown remat policy {name!r}; one of "
+                         f"{sorted([*_REMAT_SAVED, 'nothing'])}")
+    saved = _REMAT_SAVED[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 class Dropout:
@@ -292,10 +316,12 @@ class Base(nn.Module):
     def __init__(self, n_tokens: int, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 12, p_dropout: float = 0.1, causal: bool = False,
                  n_resp_levels: int = 1, use_stop_token: bool = False, norm_type: str = "ln",
-                 n_prom_levels: int = 8, remat: bool = True, dtype=torch.bfloat16):
+                 n_prom_levels: int = 8, remat: bool = True, remat_policy: str | None = None,
+                 dtype=torch.bfloat16):
         super().__init__()
         self.d_model, self.n_layers, self.dtype = d_model, n_layers, dtype
         self.p_dropout, self.remat = p_dropout, remat
+        self.remat_context = resolve_remat_policy(remat_policy)
         self.n_resp_tokens = n_tokens + (1 if use_stop_token else 0)
         self.text_emb = Embed(n_tokens, d_model)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_tokens, d_model)
@@ -337,10 +363,11 @@ class Base(nn.Module):
         if generator is not None and self.p_dropout > 0:
             seeds = torch.randint(2**62, (self.n_layers,), generator=generator,
                                   device=generator.device).tolist()
-        remat = self.remat and torch.is_grad_enabled()
+        use_remat = self.remat and torch.is_grad_enabled()
         for block, seed in zip(self.blocks(), seeds):
-            x = (checkpoint(block, x, mask, level, seed, use_reentrant=False) if remat
-                 else block(x, mask, level, seed))
+            x = (checkpoint(block, x, mask, level, seed, use_reentrant=False,
+                             context_fn=self.remat_context)
+                 if use_remat else block(x, mask, level, seed))
         logits = self.classifier(x.float())
         return logits * mask[..., None]
 

@@ -10,7 +10,7 @@ cross-attention K/V of the conditioning are computed once per utterance
 (``cond_kv``) and reused by every denoiser step.  With ``remat`` each
 block's ``apply_step`` is recomputed in the backward instead of keeping its
 activations (``torch.utils.checkpoint``, as ``nn.remat`` in the JAX
-package).
+package), under ``remat_policy`` (``models/base.resolve_remat_policy``).
 
 Submodule names equal the flax names (``dit_0``, ``text_tower.layer_0``,
 ...), so a flax parameter path maps onto the ``state_dict`` one to one
@@ -24,7 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import route
-from .base import (Dense, Embed, LayerNorm, MultiEmbedding, gelu, refuse_remat_policy,
+from .base import (Dense, Embed, LayerNorm, MultiEmbedding, gelu, resolve_remat_policy,
                    sinusoidal_embedding)
 
 
@@ -150,9 +150,9 @@ class DiTDenoiser(nn.Module):
                  dtype=torch.bfloat16, tower_ffn_dim=None, tower_act: str = "gelu",
                  resp_pe: bool = True, remat: bool = False, remat_policy=None):
         super().__init__()
-        refuse_remat_policy(remat_policy)
         self.d_model, self.n_layers, self.dtype, self.resp_pe = d_model, n_layers, dtype, resp_pe
         self.remat = remat
+        self.remat_context = resolve_remat_policy(remat_policy)
         self.text_emb = Embed(n_classes, d_model)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_classes, d_model)
         self.resps_emb = Embed(n_classes, d_model)
@@ -193,11 +193,12 @@ class DiTDenoiser(nn.Module):
             x = x + self._positions(x_t.shape[1], x_t.device)
         x = x.to(dt) * resp_mask[..., None].to(dt)
         t_emb = self.time_emb(t).to(dt)
-        remat = self.remat and torch.is_grad_enabled()
+        use_remat = self.remat and torch.is_grad_enabled()
         for blk, (kv_text, kv_spkr) in zip(self.blocks(), kv_list):
             args = (x, resp_mask, kv_text, text_mask, kv_spkr, prom_mask, t_emb)
-            x = (checkpoint(blk.apply_step, *args, use_reentrant=False) if remat
-                 else blk.apply_step(*args))
+            x = (checkpoint(blk.apply_step, *args, use_reentrant=False,
+                            context_fn=self.remat_context)
+                 if use_remat else blk.apply_step(*args))
         logits = self.final(x.float())
         return logits * resp_mask[..., None]
 

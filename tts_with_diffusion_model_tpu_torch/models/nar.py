@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .base import Base, build_targets, masked_cross_entropy, refuse_remat_policy, sample_categorical
+from .base import Base, build_targets, masked_cross_entropy, sample_categorical
 
 
 class NAR(nn.Module):
@@ -24,11 +24,11 @@ class NAR(nn.Module):
         """``attn_impl`` is read for compatibility: every attention takes the
         route of ``ops/route.py`` whatever it says."""
         super().__init__()
-        refuse_remat_policy(remat_policy)
         self.n_tokens = n_tokens
         self.base = Base(n_tokens, d_model, n_heads, n_layers, p_dropout=p_dropout,
                          causal=False, n_resp_levels=self.n_resp_levels, use_stop_token=False,
-                         norm_type="adaln", remat=remat, dtype=dtype)
+                         norm_type="adaln", remat=remat, remat_policy=remat_policy,
+                         dtype=dtype)
 
     def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask, quant_levels,
                 generator=None):

@@ -133,15 +133,21 @@ def device_name(device: str) -> str:
 
 
 def parse_train_log(text: str) -> dict:
-    """The train CLI's output → step-time percentiles (its stats'
-    ``elapsed_time``), the loss every 100 steps and the Eval lines."""
+    """The train CLI's output → the loader it took, step-time percentiles
+    (its stats' ``elapsed_time``, the first step left out), the stalls
+    (steps over 3× the p50: how many, and their share of the summed step
+    time), the loss every 100 steps and the Eval lines."""
     steps = [json.loads(ln[ln.index("{"):]) for ln in text.splitlines()
              if " - {" in ln and '"elapsed_time"' in ln]
     evals = re.findall(r"'loss': ([0-9.eE+-]+), 'global_step': (\d+), 'name': '(\w+)'", text)
+    loader = re.search(r"Training batches from the (\w+) loader", text)
     times = np.array([s["elapsed_time"] for s in steps[1:]]) * 1e3
-    return {"steps": len(steps), "first_step_ms": steps[0]["elapsed_time"] * 1e3,
+    slow = times[times > 3 * np.median(times)]
+    return {"loader": loader.group(1) if loader else None,
+            "steps": len(steps), "first_step_ms": steps[0]["elapsed_time"] * 1e3,
             "step_ms_p10_p50_p90": [float(np.percentile(times, q)) for q in (10, 50, 90)],
             "step_s_sum": float(times.sum() / 1e3),
+            "slow_steps": int(len(slow)), "slow_share": float(slow.sum() / times.sum()),
             "loss_every_100": [(s["global_step"], s["model.loss"]) for s in steps
                                if s["global_step"] % 100 == 0],
             "val": [(int(s), float(v)) for v, s, n in evals if n == "val"],

@@ -626,18 +626,28 @@ def make_server(synth: Synthesizer, host: str = "127.0.0.1", port: int = 8400,
     """A ``DrainingHTTPServer`` answering /healthz, /stats, /tts and
     /tts_stream through ``batcher`` (else ``synth`` directly); at most
     ``max_pending`` requests in flight across both POST endpoints (0 or None:
-    no bound), the rest shed with 503 and ``Retry-After: 1``."""
+    no bound), the rest shed with 503 and ``Retry-After: 1``.  A request
+    gives its admission slot back before the last bytes of its answer go
+    out, so a client that reads its answer and posts again finds the slot
+    free; the server's ``admit`` is the semaphore (None without a bound)."""
     submit = batcher.submit if batcher is not None else synth.synthesize
     submit_row = batcher.submit_row if batcher is not None else None
     stats = ServerStats()
     if batcher is not None:
         batcher.stats = stats
-    admit = threading.Semaphore(max_pending) if max_pending and max_pending > 0 else None
 
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1 for Transfer-Encoding: chunked on /tts_stream; every other
         # response sends Content-Length, as keep-alive requires
         protocol_version = "HTTP/1.1"
+        #: the admission slot the request being answered holds, if any
+        _slot = None
+
+        def _release_slot(self):
+            """Give the request's admission slot back, once."""
+            slot, self._slot = self._slot, None
+            if slot is not None:
+                slot.release()
 
         def log_message(self, fmt, *args):
             _logger.info("%s - %s", self.address_string(), fmt % args)
@@ -650,6 +660,7 @@ def make_server(synth: Synthesizer, host: str = "127.0.0.1", port: int = 8400,
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
+            self._release_slot()
             self.wfile.write(body)
 
         def do_GET(self):
@@ -670,16 +681,17 @@ def make_server(synth: Synthesizer, host: str = "127.0.0.1", port: int = 8400,
             if handle is None:
                 self.send_error(404)
                 return
+            admit = self.server.admit
             if admit is not None and not admit.acquire(blocking=False):
                 stats.record_rejected()
                 self._json(503, {"error": "overloaded", "retry_after_s": 1},
                            headers=[("Retry-After", "1")])
                 return
+            self._slot = admit
             try:
                 handle()
             finally:
-                if admit is not None:
-                    admit.release()
+                self._release_slot()
 
         def _request(self) -> dict:
             return json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
@@ -697,6 +709,7 @@ def make_server(synth: Synthesizer, host: str = "127.0.0.1", port: int = 8400,
                 self.send_header("Content-Type", "audio/wav")
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
+                self._release_slot()
                 self.wfile.write(body)
             except Exception as e:  # noqa: BLE001 — answered with a 500
                 _logger.exception("tts request failed")
@@ -729,12 +742,15 @@ def make_server(synth: Synthesizer, host: str = "127.0.0.1", port: int = 8400,
                     data = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(">i2").tobytes()
                     self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
                     self.wfile.flush()
+                self._release_slot()
                 self.wfile.write(b"0\r\n\r\n")
             except Exception:  # noqa: BLE001 — the headers are sent; only a drop is left
                 _logger.exception("tts_stream aborted mid-stream")
                 self.close_connection = True
 
-    return DrainingHTTPServer((host, port), Handler)
+    server = DrainingHTTPServer((host, port), Handler)
+    server.admit = threading.Semaphore(max_pending) if max_pending and max_pending > 0 else None
+    return server
 
 
 class DrainingHTTPServer(ThreadingHTTPServer):
@@ -748,6 +764,8 @@ class DrainingHTTPServer(ThreadingHTTPServer):
     #: the listen backlog: a burst of connections must reach the admission
     #: bound (and its 503), not be reset by the kernel (socketserver's 5)
     request_queue_size = 128
+    #: the ``max_pending`` semaphore (``make_server`` sets it; None: no bound)
+    admit = None
 
     def drain(self):
         """Stop accepting, wait for in-flight handlers, release the port."""

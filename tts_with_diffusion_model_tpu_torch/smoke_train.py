@@ -8,10 +8,11 @@ the CPU tests rehearse them at a tiny size with the plain versions).
    the AR's packed self-attention, ar-quarter's) and of the AR's val-loss
    eval, with device times beside the plain version's, SDPA's and the
    bound;
-6. train       — the train CLI's ``main`` on a gen4c recipe
-   (``config/gen4c/{diffusion,nar,ar}.yml``) over a seeded synthetic
-   corpus, with the launch counts per step, the checkpoint and the
-   val-loss eval checked.
+6. train       — the train CLI's ``main`` on a recipe
+   (``config/gen4c/{diffusion,nar,ar}.yml``, or gen4b's) over a seeded
+   synthetic corpus, with the loader it took, the launch counts per step,
+   the checkpoint, the val-loss eval and (``eval_decode_audio``) each eval
+   decode's launches and seconds checked or recorded.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .data import dataset
 from .ops import masked_attention as serve_ops
 from .ops import train_flash_attention as train_ops
 from .smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, REPO, SMOKE_DIR, TOL, _eager_ms, _time_ms,
@@ -461,14 +463,35 @@ def train_kernel_summary(results: list[dict], runs: list[tuple[str, int, int, in
 # ---------------- 6. the train CLI ----------------
 
 class _Records(logging.Handler):
-    """Keeps the messages of one logger (the eval lines)."""
+    """Keeps the messages of one logger (the eval lines), each with the
+    host clock and ``snapshot()`` (the kernels' counters) at its emission."""
 
-    def __init__(self):
+    def __init__(self, snapshot=lambda: None):
         super().__init__(logging.INFO)
         self.lines: list[str] = []
+        self.marks: list[tuple[str, float, object]] = []
+        self.snapshot = snapshot
 
     def emit(self, record):
-        self.lines.append(record.getMessage())
+        msg = record.getMessage()
+        self.lines.append(msg)
+        self.marks.append((msg, time.perf_counter(), self.snapshot()))
+
+
+def _eval_decodes(marks) -> list[dict]:
+    """Each eval decode, between its split's ``Eval:`` line (the val loss
+    is done) and its ``Eval metrics:`` line (wavs and metrics written):
+    seconds, and the serving kernel's launches, the training kernel's
+    forward and backward launches and the plain calls it made."""
+    out = []
+    for (m0, t0, c0), (m1, t1, c1) in zip(marks, marks[1:]):
+        if m0.startswith("Eval:") and m1.startswith("Eval metrics:"):
+            metrics = json.loads(m1[len("Eval metrics: "):].rstrip("."))
+            out.append({"name": metrics["name"], "seconds": t1 - t0,
+                        **{k: b - a for k, a, b in zip(
+                            ("kernel1", "kernel2_fwd", "kernel2_bwd", "plain"), c0, c1)},
+                        "metrics": metrics})
+    return out
 
 
 def profile_train_step(engines, cfg) -> dict:
@@ -498,7 +521,8 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     from .train import train as train_cli
     from .train import trainer
 
-    data, out = SMOKE_DIR / "train_data", SMOKE_DIR / f"train_{Path(yaml).stem}"
+    data = SMOKE_DIR / "train_data"
+    out = SMOKE_DIR / f"train_{Path(yaml).parent.name}_{Path(yaml).stem}"
     for d in (data, out):
         shutil.rmtree(d, ignore_errors=True)
     n_spk, n_utt, frames, phones = corpus or (8, 12, (60, 168), (3, 50))
@@ -516,9 +540,17 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
         trainer.logger(data)
         records.append((data, fn.launches, fn.backward_launches, fn.plain_calls))
 
-    evals = _Records()
+    def counts():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return (serve.launches, fn.launches, fn.backward_launches,
+                serve.plain_calls + fn.plain_calls)
+
+    evals, loader_lines = _Records(counts), _Records()
     train_logger = logging.getLogger(train_cli.__name__)
+    data_logger = logging.getLogger(dataset.__name__)
     train_logger.addHandler(evals)
+    data_logger.addHandler(loader_lines)
     fn.launches = fn.backward_launches = fn.plain_calls = 0
     serve.launches = serve.plain_calls = 0
     if device.type == "cuda":
@@ -528,6 +560,7 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
         engines = train_cli.main(cfg, logger=step_logger)
     finally:
         train_logger.removeHandler(evals)
+        data_logger.removeHandler(loader_lines)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     engine = engines["model"]
@@ -558,12 +591,17 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     # kernel's eval launches are those after the last step's record
     eval_lines = [ln for ln in evals.lines if ln.startswith("Eval:")]
     check(len(eval_lines) == 2, f"{len(eval_lines)} eval lines != 2 (subtrain, val)")
+    decodes = _eval_decodes(evals.marks)
+    check(len(decodes) == (2 if cfg.eval_decode_audio else 0),
+          f"{len(decodes)} eval decodes with eval_decode_audio={cfg.eval_decode_audio}")
     eval_kernel, per_eval_batch = eval_attentions(engine.module)
     if eval_kernel == "masked_attention":
-        served = serve.launches if on_card else serve.plain_calls
+        served = (serve.launches if on_card else serve.plain_calls) - sum(
+            d["kernel1" if on_card else "plain"] for d in decodes)
     else:
         check(fn.backward_launches == prev[1], "the eval ran a backward")
-        served = fn.launches - prev[0] if on_card else fn.plain_calls - prev[2]
+        served = (fn.launches - prev[0] if on_card else fn.plain_calls - prev[2]) - sum(
+            d["kernel2_fwd" if on_card else "plain"] for d in decodes)
     check(served > 0 and served % per_eval_batch == 0,
           f"eval {eval_kernel} calls {served} are not a positive multiple of {per_eval_batch}")
     if on_card:
@@ -589,11 +627,16 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     del fresh, opt_a, opt_b
     check(same, "the reloaded engine differs from the trained one")
 
+    loader = "native" if "Training batches from the native loader" in loader_lines.lines else (
+        "python" if "Training batches from the python loader" in loader_lines.lines else None)
+    check(loader is not None, "the loader's choice was not logged")
     times = [r[0]["elapsed_time"] for r in records]
     p50 = float(np.median(times[1:] if len(times) > 1 else times))
+    p90 = float(np.percentile(times[1:] if len(times) > 1 else times, 90))
     frames = cfg.batch_size * bucket
     out_d = {"engines": engines, "cfg": cfg, "steps": steps, "wall_s": wall, "step_s": times,
-             "p50_step_s": p50, "frames_per_s": frames / p50, "peak_bytes": peak,
+             "p50_step_s": p50, "p90_step_s": p90, "frames_per_s": frames / p50,
+             "peak_bytes": peak, "loader": loader, "decodes": decodes,
              "fwd_per_step": want_fwd, "bwd_per_step": want_bwd,
              "run_launches": prev[0] + prev[1], "eval_kernel": eval_kernel,
              "eval_launches": served, "eval_per_batch": per_eval_batch, "eval": eval_lines,
@@ -601,8 +644,9 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
              "losses": [r[0]["model.loss"] for r in records], "sites": sites,
              "checkpoint": str(ckpt), "argv": argv}
     where = "host clock around synchronised steps" if on_card else "cpu"
-    log(f"train {cfg.model}: {steps} steps in {wall:.1f} s; step p50 {p50 * 1e3:.1f} ms "
-        f"({where}), first {times[0] * 1e3:.1f} ms; {out_d['frames_per_s']:.0f} padded frames/s "
+    log(f"train {cfg.model}: {steps} steps in {wall:.1f} s on the {loader} loader; step p50 "
+        f"{p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms ({where}), first {times[0] * 1e3:.1f} ms; "
+        f"{out_d['frames_per_s']:.0f} padded frames/s "
         f"(B={cfg.batch_size} x bucket {bucket}); peak allocated "
         f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
     log(f"train {cfg.model}: kernel launches per step {per_step_counts[0]} (fwd, bwd, plain) = "

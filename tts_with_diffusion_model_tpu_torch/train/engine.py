@@ -18,7 +18,12 @@ The update is optax's, written out, because torch's own helpers differ:
   - EMA ``d·e + (1−d)·p`` after every micro-batch, from a copy of the
     initial parameters;
   - ``grad_norm`` in the stats is the micro-batch gradient's pre-clip norm,
-    and ``lr`` is the schedule at the engine step after the increment.
+    and ``lr`` is the schedule at the engine step after the increment;
+  - ``trainable_filter`` (``optax.multi_transform`` over clip + Adam): a
+    predicate on each parameter's JAX path (``params/base/text_emb/
+    embedding``); the others get zero updates and no Adam state, and the
+    clipping norm is taken over the trainable gradients only.  Accumulation
+    stays outside the mask, as ``MultiSteps`` does.
 
 Checkpoints are ``torch.save`` files ``ckpt_dir/<name>/step_<8 digits>.pt``
 (the JAX package writes orbax directories of the same names; the bundle
@@ -35,6 +40,8 @@ from typing import Callable, Protocol
 
 import numpy as np
 import torch
+
+from ..convert import tree_path, torch_params_to_jax
 
 _logger = logging.getLogger(__name__)
 
@@ -93,11 +100,34 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
+def jax_paths(module: torch.nn.Module) -> list[str]:
+    """Each parameter's path in the JAX package's tree, in
+    ``named_parameters`` order: ``params/`` and the flax path of the
+    denoiser's parameter for the diffusion family (whose JAX engine holds
+    the denoiser's tree), of the model's for the others."""
+    root = getattr(module, "denoiser", module)
+    names = {id(p): n for n, p in root.named_parameters()}
+    return [f"params/{tree_path(root, names[id(p)])}" for p in module.parameters()]
+
+
+def _tree(paths: list[str], values) -> dict:
+    """A nested dict from ``/``-joined paths (the JAX package's pytree)."""
+    tree: dict = {}
+    for path, v in zip(paths, values):
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
 class Engine:
     """One model's training state and step."""
 
     def __init__(self, name: str, module: torch.nn.Module, loss_fn: LossFn, opt_cfg: dict,
-                 ckpt_root: Path, ema_decay: float | None = None):
+                 ckpt_root: Path, ema_decay: float | None = None,
+                 trainable_filter: Callable[[str], bool] | None = None):
         self.name = name
         self.module = module
         self.loss_fn = loss_fn
@@ -111,7 +141,10 @@ class Engine:
         self.accum = int(opt_cfg.get("gradient_accumulation_steps", 1))
         self.names = [n for n, _ in module.named_parameters()]
         self.params = [p for _, p in module.named_parameters()]
-        self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0), betas=ADAM_BETAS,
+        self.trainable = ([True] * len(self.params) if trainable_filter is None else
+                          [bool(trainable_filter(path)) for path in jax_paths(module)])
+        self.trained = [p for p, keep in zip(self.params, self.trainable) if keep]
+        self.optimizer = torch.optim.Adam(self.trained, lr=self.schedule(0), betas=ADAM_BETAS,
                                           eps=ADAM_EPS)
         self.update_count = 0  # optimizer updates applied (optax's inner count)
         self.mini_step = 0     # micro-batches accumulated toward the next update
@@ -133,11 +166,12 @@ class Engine:
 
     @torch.no_grad()
     def _apply(self, grads):
-        """Clip by global norm, then one Adam update at the schedule's value
-        for the current update count."""
+        """Clip the trainable gradients by their global norm, then one Adam
+        update at the schedule's value for the current update count."""
+        grads = [g for g, keep in zip(grads, self.trainable) if keep]
         norm = global_norm(grads)
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
-        for p, g in zip(self.params, grads):
+        for p, g in zip(self.trained, grads):
             p.grad = g * factor
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.update_count)
@@ -181,6 +215,24 @@ class Engine:
                     for k, v in stats.items()})
         out["grad_norm"] = grad_norm
         return _to_floats(out) if sync else out
+
+    def diagnose(self, batch: dict, generator: torch.Generator | None, diagnostic):
+        """One batch's gradients and the current parameters into a
+        ``utils.diagnostic.Diagnostic``, under the JAX package's parameter
+        paths and in its layouts (nothing is updated)."""
+        loss, _ = self.loss_fn(self.module, batch_to_device(batch, self.device), generator)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        root = getattr(self.module, "denoiser", self.module)
+        names = {id(p): n for n, p in root.named_parameters()}
+
+        def tree(values):
+            flat = torch_params_to_jax(root, {names[id(p)]: v for p, v in zip(self.params, values)})
+            return _tree([f"params/{k}" for k in flat], flat.values())
+
+        diagnostic.observe_grads(tree(grads))
+        diagnostic.observe_params(tree(self.params))
+        return diagnostic
 
     # ---------------- checkpointing ----------------
 

@@ -7,28 +7,41 @@ wraps its loss feeder in an ``Engine`` on ``cfg.device`` (the card unless
 ``device=cpu``), resumes from the latest checkpoint, and hands everything to
 the generic loop.  Eval computes the val loss under ``no_grad`` through the
 same feeder with a generator seeded from 0, so the AR's and NAR's eval
-runs with dropout on, as the JAX package's does.  On the card a
-non-causal eval attention runs the serving kernel and a causal one the
-training kernel's forward (``ops/route.py``).
+runs with dropout on, as the JAX package's does.  With
+``eval_decode_audio`` it then generates for the eval's first batch (the
+AR's ``ar_generate``, the NAR given level 0, the diffusion model's
+ancestral chain), decodes hypotheses and references with the codec, and
+writes ``hyp/`` and ``ref/`` wavs and ``metrics.json`` (token accuracy per
+level, DTW mel-cepstral distortion) under ``log_dir/<step>/<name>/``.  On
+the card a non-causal eval attention runs the serving kernel and a causal
+one the training kernel's forward (``ops/route.py``).
 
-Not ported yet, and rejected by name rather than ignored:
-``eval_decode_audio``, ``profile_every``, ``zero1``, a mesh larger than
-1×1, ``cache_dataloader`` and ``gradient_checkpointing_policy: dots``.
+Not ported yet, and rejected by name rather than ignored: ``zero1`` and a
+mesh larger than 1×1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
+from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..audio.wavio import write_wav
+from ..codec import encodec
 from ..config import Config
 from ..convert import init_seeded
 from ..data.dataset import BucketSpec, create_train_val_dataloader
 from ..models import get_model
+from ..models.ar import ar_generate
+from ..models.nar import nar_generate
 from ..utils.device import resolve_device
 from ..utils.logging import setup_logging
+from ..utils.metrics import aggregate_metrics, eval_utterance_metrics
+from ..utils.rng import RowKeys
 from . import trainer
 from .engine import Engine, batch_to_device
 
@@ -37,17 +50,10 @@ _logger = logging.getLogger(__name__)
 
 def check_supported(cfg: Config) -> None:
     """Raise on a knob whose code the port does not have yet."""
-    unported = {
-        "eval_decode_audio": cfg.eval_decode_audio,
-        "profile_every": cfg.profile_every,
-        "zero1": cfg.zero1,
-        "cache_dataloader": cfg.cache_dataloader,
-    }
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP queue 1, "
-                                      "\"what is left of training\"); the port trains on one "
-                                      "card without it")
+    if cfg.zero1:
+        raise NotImplementedError(
+            "zero1=True is not ported yet (ROADMAP queue 1, \"parallel/mesh.py, "
+            "parallel/infer.py\"); the port trains on one card without it")
     if cfg.mesh_dp not in (-1, 1) or cfg.mesh_tp != 1:
         raise NotImplementedError(
             f"mesh_dp={cfg.mesh_dp} mesh_tp={cfg.mesh_tp} is not ported yet (ROADMAP queue 1, "
@@ -166,6 +172,92 @@ class _EmaWeights:
         return False
 
 
+def eval_params(cfg: Config, engine: Engine):
+    """The weights eval runs with, as a context: the EMA average when
+    ``eval_use_ema`` is set and tracked, else the raw parameters."""
+    return (_EmaWeights(engine) if cfg.eval_use_ema and engine.ema is not None
+            else contextlib.nullcontext())
+
+
+def decode_rows(rows: list[np.ndarray], codec) -> tuple[list[np.ndarray], int]:
+    """Decode a list of (t_i, q) code arrays in one codec call: every row
+    padded to the longest rounded up to 64 frames with its last frame
+    repeated (edge-replicated codes, so the decoder sees signal-like
+    context rather than a cliff), each wav cut back to t_i·HOP samples."""
+    lens = [len(r) for r in rows]
+    T = -(-max(lens) // 64) * 64
+    padded = np.stack([np.concatenate([r, np.repeat(r[-1:], T - len(r), axis=0)], axis=0)
+                       for r in rows])  # (B, T, q)
+    wavs, sr = codec.decode(np.moveaxis(padded, 1, 2))
+    return [wavs[i, : lens[i] * encodec.HOP] for i in range(len(rows))], sr
+
+
+@torch.no_grad()
+def generate_codes(cfg: Config, module, batch: dict, step: int) -> list[np.ndarray]:
+    """The eval batch's hypotheses, each (t_i, q) codes over the reference's
+    span: the AR's tokens up to its stop (``max_val_ar_steps``), the NAR's
+    eight levels given level 0, the diffusion model's ancestral chain (stride
+    1) cut to the reference's length.  Row i draws from ``RowKeys`` of seed
+    i folded with ``step``."""
+    dev = next(module.parameters()).device
+    arrays = batch_to_device(batch, dev)
+    args = (arrays["text"], arrays["text_mask"], arrays["proms"], arrays["prom_mask"])
+    n_rows = arrays["text"].shape[0]
+    keys = RowKeys.from_seeds(range(n_rows)).fold(step)
+    lens = batch["resp_mask"].sum(axis=1).astype(int)
+    name = cfg.model.lower()
+    if name.startswith("ar"):
+        toks, n = ar_generate(module, *args, keys, max_steps=cfg.max_val_ar_steps,
+                              sampling_temperature=cfg.sampling_temperature)
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        return [toks[i, : int(n[i])][:, None] for i in range(n_rows)]
+    if name.startswith("nar"):
+        out = nar_generate(module, *args, arrays["resp"], arrays["resp_mask"], keys,
+                           sampling_temperature=cfg.sampling_temperature).cpu().numpy()
+        return [out[i, : lens[i]] for i in range(n_rows)]
+    # the diffusion family generates a fixed window: score the reference's span
+    out = module.generate(*args, keys).cpu().numpy()
+    return [out[i, : lens[i], None] for i in range(n_rows)]
+
+
+def decode_eval_audio(cfg: Config, engines, name: str, batch: dict, codec) -> dict:
+    """Hypothesis and reference wavs and their metrics under
+    ``log_dir/<step>/<name>/{hyp,ref}``, and ``metrics.json`` (the mean and
+    each utterance's); returns the mean."""
+    step, engine = engines.global_step, engines["model"]
+    out_root = Path(cfg.log_dir) / str(step) / name
+    with eval_params(cfg, engine):
+        hyps = generate_codes(cfg, engine.module, batch, step)
+    # the NAR is given level 0: it is reported as teacher-provided, not scored
+    teacher_levels = 1 if cfg.model.lower().startswith("nar") else 0
+    refs = [np.asarray(batch["resps"][i][: int(batch["resp_mask"][i].sum())])
+            for i in range(len(batch["path"]))]
+    ref_wavs, sr = decode_rows(refs, codec)
+    nonempty = [i for i, h in enumerate(hyps) if len(h) > 0]
+    hyp_wavs = {}
+    if nonempty:
+        ws, _ = decode_rows([hyps[i] for i in nonempty], codec)
+        hyp_wavs = dict(zip(nonempty, ws))
+    per_utt = []
+    for i, path in enumerate(batch["path"]):
+        rel = Path(path).name.split(".")[0]
+        for d in ("hyp", "ref"):
+            (out_root / d).mkdir(parents=True, exist_ok=True)
+        write_wav(out_root / "ref" / f"{rel}.wav", ref_wavs[i], sr)
+        if i in hyp_wavs:
+            write_wav(out_root / "hyp" / f"{rel}.wav", hyp_wavs[i], sr)
+            per_utt.append(eval_utterance_metrics(hyps[i], refs[i], hyp_wavs[i], ref_wavs[i], sr,
+                                                  teacher_levels=teacher_levels))
+        else:
+            per_utt.append({"len_ratio": 0.0, "acc": 0.0})
+    metrics = aggregate_metrics(per_utt)
+    metrics.update({"global_step": step, "name": name})
+    _logger.info(f"Eval metrics: {json.dumps(metrics)}.")
+    with open(out_root / "metrics.json", "w") as f:
+        json.dump({"mean": metrics, "per_utt": per_utt}, f, indent=1)
+    return metrics
+
+
 def main(cfg: Config | None = None, logger=None):
     """Train until ``max_iter`` or ``quit``; returns the engines.  ``logger``
     replaces the JSON-line stats logger (it gets ``data=stats``)."""
@@ -180,24 +272,32 @@ def main(cfg: Config | None = None, logger=None):
     bucket = make_bucket(cfg, model)
     train_dl, subtrain_dl, val_dl = create_train_val_dataloader(cfg, bucket)
     loss_fn = make_loss_fn(cfg, model)
+    codec = None
 
     @torch.no_grad()
     def run_eval(engines, name, dl):
         """Val loss, averaged over ``dl``'s batches, with a generator seeded
-        from 0 (the JAX package evaluates with PRNGKey(0))."""
+        from 0 (the JAX package evaluates with PRNGKey(0)); then, with
+        ``eval_decode_audio``, the first batch's wavs and metrics."""
+        nonlocal codec
         engine = engines["model"]
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-        use_ema = cfg.eval_use_ema and engine.ema is not None
-        losses = []
-        with _EmaWeights(engine) if use_ema else contextlib.nullcontext():
+        losses, first_batch = [], None
+        with eval_params(cfg, engine):
             for batch in dl:
                 loss, _ = loss_fn(engine.module, batch_to_device(batch, device), generator)
                 losses.append(float(loss))
+                if first_batch is None:
+                    first_batch = batch
         if losses:
             stats = {"loss": sum(losses) / len(losses), "global_step": engines.global_step,
                      "name": name}
             _logger.info(f"Eval: {stats}.")
+        if cfg.eval_decode_audio and first_batch is not None:
+            if codec is None:
+                codec = encodec.load_codec(encodec.find_weights(), device)
+            decode_eval_audio(cfg, engines, name, first_batch, codec)
         return 0
 
     def eval_fn(engines):
@@ -205,8 +305,13 @@ def main(cfg: Config | None = None, logger=None):
         run_eval(engines, "val", val_dl)
 
     kw = {} if logger is None else {"logger": logger}
-    return trainer.train(engines_loader=lambda: load_engines(cfg, model), train_dl=train_dl,
-                         eval_fn=eval_fn, **kw)
+    try:
+        return trainer.train(engines_loader=lambda: load_engines(cfg, model),
+                             train_dl=train_dl, eval_fn=eval_fn, **kw)
+    finally:
+        close = getattr(train_dl, "close", None)
+        if close is not None:
+            close()
 
 
 if __name__ == "__main__":

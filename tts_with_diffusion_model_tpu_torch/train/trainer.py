@@ -7,7 +7,10 @@ package, ≡ ``vall_e/utils/trainer.py:118-210``).
     ``event clear`` and ``time [to N]`` ETA; one line is read per step
     (the first before the loop), without blocking;
   - periodic checkpointing every ``save_ckpt_every or eval_every`` and
-    periodic eval; ``save_on_quit`` honoured.
+    periodic eval; ``save_on_quit`` honoured;
+  - ``profile_every``: a ``torch.profiler`` trace of ``profile_n_steps``
+    steps every ``profile_every`` steps under ``log_dir/profile/step_<N>``
+    (``utils/profiling.py``), on the global leader only.
 
 One process on one card: the JAX package's leader election and broadcast
 of stdin commands between hosts have nothing to do here.
@@ -21,6 +24,8 @@ import selectors
 import sys
 from typing import Callable, Protocol
 
+from ..utils.device import is_global_leader
+from ..utils.profiling import StepProfiler
 from .engine import Engine, Engines
 
 _logger = logging.getLogger(__name__)
@@ -132,6 +137,9 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
     schedule = _DeferredCommands()
     ckpt_period = cfg.save_ckpt_every or cfg.eval_every
     step_seconds = 0.0
+    prof = None
+    if cfg.profile_every and is_global_leader():
+        prof = StepProfiler(cfg.log_dir, every=cfg.profile_every, n_steps=cfg.profile_n_steps)
 
     def report_eta(spec: str) -> None:
         # "time" → ETA to max_iter; "time to N" → ETA to step N.
@@ -149,6 +157,8 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
         final = engines.flush_stats()
         if final:
             logger(data=final)
+        if prof is not None:
+            prof.close()
 
     try:
         # A command typed before the first step can eval and/or exit at once.
@@ -161,7 +171,11 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
         for batch in _make_infinite_epochs(train_dl):
             if engines.global_step >= cfg.max_iter:
                 break
+            if prof is not None:
+                prof.maybe_start(engines.global_step + 1)
             stats = engines.step(batch=batch)
+            if prof is not None:
+                prof.maybe_stop(engines.global_step)
             step_seconds = stats.get("elapsed_time", 0)
             logger(data=stats)
 

@@ -1,4 +1,5 @@
-"""The entry points' device rule: the card unless the caller asks for the CPU."""
+"""The entry points' device rule (the card unless the caller asks for the
+CPU), and which process leads (profiles, writes diagnostics)."""
 
 from __future__ import annotations
 
@@ -11,3 +12,10 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def is_global_leader() -> bool:
+    """Rank 0 of a process group, or the one process there is."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
