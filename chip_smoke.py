@@ -29,7 +29,15 @@ NAR on kernel 1, the AR's prefill on kernel 2's forward, each eval decode's
 launches checked against its sites, hyp / ref wavs and ``metrics.json``),
 then a 2-step D3PM run traced with ``profile_every``; then remat policies: a gen4c
 D3PM and NAR step under each ``gradient_checkpointing_policy`` with every
-gradient held to whole-block recompute's.  Builds every
+gradient held to whole-block recompute's; then train -> export -> serve
+gaussian: both kernels held to their plain versions at the Gaussian
+family's sites (head widths 32, 16 and 8), then ``model=diffusion-gaussian``
+(the DiT) and ``-unet2d`` (the conv-UNet) on ``diffusion.yml`` for 8 steps,
+exported with ``--ema`` and round-tripped, and ``-unet2d-ref`` at its
+published widths for 2 steps from seeded weights, each served through a
+``Synthesizer`` over the exported NAR (100 denoiser calls, 2488 / 788 / 84
+kernel-1 launches per batch) with fp32 codes held identical alone and in a
+cohort of 4 through the ``Batcher``.  Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
 wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
 kernel against its plain PyTorch version at every shape these paths give it
@@ -58,8 +66,9 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one serving batch (MaskGIT and AR) and one train "
-                             "step with torch.profiler and print where the time goes")
+                        help="also trace one serving batch (MaskGIT, AR and the Gaussian DiT) "
+                             "and one train step with torch.profiler and print where the time "
+                             "goes")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -69,6 +78,7 @@ def main() -> int:
             smoke,
             smoke_ar,
             smoke_export,
+            smoke_gaussian,
             smoke_gen4b,
             smoke_serve,
             smoke_train,
@@ -146,7 +156,7 @@ def main() -> int:
                     f"!= {want[0]}+{want[1]}")
         path = tr["sites"][0].path
         smoke.log(f"{name}: step p50 {tr['p50_step_s'] * 1e3:.1f} ms, "
-                  f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated "
+                  f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated (the run's own) "
                   f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
         runs.append((path, tr["fwd_per_step"], tr["bwd_per_step"], tr["run_launches"]))
         argvs[path] = tr["argv"]
@@ -230,8 +240,36 @@ def main() -> int:
     eval_runs.append(("serve http ar", 12, 0, sh["ar"]["launches"]["kernel2"]))
     del sh
     torch.cuda.empty_cache()
+    # the Gaussian family: its kernel sites (head widths 32, 16, 8), then
+    # train -> export -> serve of each variant over the exported NAR
+    with smoke.phase("gaussian kernel vs plain"):
+        g_serve, g_train = smoke_gaussian.phase_kernel_check(
+            device, 256, len(smoke.TEXTS), 32, 192, seed=args.seed)
+    with smoke.phase("train -> export -> serve gaussian"):
+        gs = smoke_gaussian.phase_gaussian(device, nar_bundle, seed=args.seed,
+                                           repeats=args.repeats, smi=info["smi"],
+                                           profile=args.profile)
+    for name, steps_want, serve_want, pb_want in (
+            ("diffusion-gaussian", (52, 28), 4 + 100 * 24 + 84, 256),
+            ("diffusion-gaussian-unet2d", (11, 11), 4 + 100 * 7 + 84, 256),
+            ("diffusion-gaussian-unet2d-ref", (0, 0), 84, 398)):
+        r, path = gs[name], smoke_gaussian.path_name(name)
+        served = r["served"]
+        smoke.check((r["fwd_per_step"], r["bwd_per_step"]) == steps_want,
+                    f"{name}: kernel-2 launches per step {r['fwd_per_step']}+"
+                    f"{r['bwd_per_step']} != {steps_want}")
+        smoke.check(served["expected"] == serve_want and served["prompt_bucket"] == pb_want,
+                    f"{name}: kernel-1 launches per batch {served['expected']} at prompt "
+                    f"bucket {served['prompt_bucket']} != {serve_want} at {pb_want}")
+        paths[f"{path} serve"] = smoke_gaussian.path_totals(
+            [*g_serve, *results], served["sites"], served["launches"])
+        if r["fwd_per_step"]:
+            runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
+    train_results += g_train
+    del gs
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
-                                    paths, checked=[*ar_nar_results, *d3pm_decode_results]),
+                                    paths, checked=[*ar_nar_results, *d3pm_decode_results,
+                                                    *g_serve]),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

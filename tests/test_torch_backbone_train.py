@@ -233,8 +233,10 @@ def test_registry_refuses_bad_names():
         get_model("nar-eighth")
     with pytest.raises(ValueError):
         get_model("tts")
-    with pytest.raises(NotImplementedError, match="Gaussian"):
-        get_model("diffusion-gaussian")
+    # the Gaussian family is built; its UNet denoisers still refuse the
+    # embedding domain, as JAX's do
+    with pytest.raises(ValueError, match="requires domain='value'"):
+        get_model("diffusion-gaussian", 64, {"denoiser": "conv-unet"})
     # every policy JAX knows is ported; an unknown one raises as JAX's does
     with pytest.raises(ValueError, match="unknown remat policy"):
         get_model("ar-quarter", 64, {"remat_policy": "dot"})

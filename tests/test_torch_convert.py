@@ -13,7 +13,8 @@ import torch
 
 from tts_with_diffusion_model_tpu_torch.bundle import load_bundle, load_npz
 from tts_with_diffusion_model_tpu_torch.codec.encodec import EncodecModel
-from tts_with_diffusion_model_tpu_torch.convert import cast_params_bf16, jax_params_to_torch
+from tts_with_diffusion_model_tpu_torch.convert import (cast_params_bf16, init_seeded,
+                                                         jax_params_to_torch)
 from tts_with_diffusion_model_tpu_torch.models.base import Dense
 from tts_with_diffusion_model_tpu_torch.serve import build_model
 
@@ -87,21 +88,28 @@ def test_cast_params_bf16_keeps_norms_and_vectors_fp32():
 
 @pytest.mark.parametrize("case", ["gaussian_bundle", "ancestral"])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, case):
+    """A Gaussian bundle is served by the CLI; the D3PM's samplers are not
+    its own, so ``--stride 3`` and ``--decode ancestral`` are refused for it
+    (the bundles are the port's, seeded and saved by ``export``)."""
     from tts_with_diffusion_model_tpu_torch.__main__ import main
+    from tts_with_diffusion_model_tpu_torch.export import bundle_params, save_bundle
+    from tts_with_diffusion_model_tpu_torch.models import get_model
 
-    (tmp_path / "gauss").mkdir()
-    (tmp_path / "gauss" / "model.json").write_text(
-        '{"model": "diffusion-gaussian", "num_tokens": 1024}')
-    (tmp_path / "nar").mkdir()
-    (tmp_path / "nar" / "model.json").write_text('{"model": "nar", "num_tokens": 1024}')
+    dims = {"d_model": 32, "n_heads": 2, "n_layers": 1}
+    for name, ov in (("diffusion-gaussian", {**dims, "timesteps": 2, "resp_len": 16,
+                                             "gen_len": 12}), ("nar", dims)):
+        model = get_model(name, 1024, ov)
+        init_seeded(getattr(model, "denoiser", model), 0)
+        save_bundle(tmp_path / name, bundle_params(model),
+                    {"model": name, "num_tokens": 1024, **ov}, {"_": 1}, {"spk": 0})
     args = ["hello there", "ref.wav", str(tmp_path / "out.wav"), "--device", "cpu",
-            "--ar-ckpt", str(tmp_path / "gauss"), "--nar-ckpt", str(tmp_path / "nar")]
-    if case == "ancestral":  # ancestral decoding is ported; the Gaussian family is not
-        args += ["--decode", "ancestral"]
+            "--ar-ckpt", str(tmp_path / "diffusion-gaussian"), "--nar-ckpt",
+            str(tmp_path / "nar")]
+    args += ["--stride", "3"] if case == "gaussian_bundle" else ["--decode", "ancestral"]
     with pytest.raises(SystemExit) as e:
         main(args)
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "D3PM samplers" in capsys.readouterr().err
 
 
 def test_port_and_chip_smoke_import_without_jax():

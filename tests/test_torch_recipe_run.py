@@ -80,3 +80,21 @@ def test_recipe_run_ar_chain_reuses_the_workdir(tiny_run):
         assert (entry["tie_margin"] is None) == entry["identical"]
         assert entry["rounds"] >= 1 and 0.0 <= entry["accepted_per_round"] <= k + 1
         assert 0.0 <= entry["acceptance_rate"] <= 1.0 and entry["tok_s"] > 0
+
+
+def test_zoo_estimator_holds_a_bundle_against_the_run(tiny_run):
+    """``--zoo-estimator``'s comparison, on the tiny run's own exported
+    D3PM as the bundle: both estimators on the same val split, for the
+    bundle and the run's EMA at step 4 (the same weights when the exported
+    val-minimum tick is step 4)."""
+    tmp_path, report = tiny_run
+    run = recipe_run.Run(tmp_path, "cpu", None, tiny=True)
+    out = recipe_run.zoo_estimate(run, tmp_path / "zoo" / "diffusion", 4)
+    assert out["same_phone_symmap"] and out["val_utterances"] == 2
+    for side in ("zoo", "port"):
+        e = out[side]
+        assert e["min"] <= e["mean"] <= e["max"] and e["std"] > 0 and np.isfinite(e["all_t"])
+    assert out["port"]["step"] == 4 and out["zoo"]["weights"] == "ema"
+    if report["exported"]["d3pm"]["step"] == 4:
+        assert out["zoo"] == {**out["port"], "bundle": out["zoo"]["bundle"]}
+        assert out["all_t_gap"] == 0 and out["within_spread"]

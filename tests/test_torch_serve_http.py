@@ -303,9 +303,8 @@ def test_drain_finishes_the_request_in_flight(served, monkeypatch):
 
 @pytest.fixture(scope="module")
 def tiny_bundles(tmp_path_factory):
-    """A tiny diffusion bundle (T = 20, gen_len 40) and a tiny NAR bundle,
-    written by the JAX package's exporter, and a Gaussian bundle's
-    model.json."""
+    """A tiny diffusion bundle (T = 20, gen_len 40), a tiny NAR bundle and a
+    tiny Gaussian bundle (T = 4), written by the JAX package's exporter."""
     from tts_with_diffusion_model_tpu.export import save_bundle
     from tts_with_diffusion_model_tpu.models.diffusion import DiffusionConfig, DiffusionModel
     from tts_with_diffusion_model_tpu.models.nar import NAR
@@ -325,17 +324,25 @@ def tiny_bundles(tmp_path_factory):
     nar = jax.jit(NAR(1024, remat=False, **dims).init)(jax.random.PRNGKey(1), z, f, resp, f, resp,
                                                         f, jnp.zeros((1,), jnp.int32))
     save_bundle(root / "nar", nar, dict(model="nar", num_tokens=1024, **dims), symmap, {"spk": 0})
-    (root / "gaussian").mkdir()
-    (root / "gaussian" / "model.json").write_text(json.dumps({"model": "diffusion-gaussian"}))
+    from tts_with_diffusion_model_tpu.models.gaussian_tts import (GaussianConfig,
+                                                                   GaussianDiffusionModel)
+
+    gmeta = dict(model="diffusion-gaussian", num_tokens=1024, timesteps=4, resp_len=48,
+                 text_len=50, prom_len=64, gen_len=40, **dims)
+    gm = GaussianDiffusionModel(GaussianConfig(**{k: v for k, v in gmeta.items()
+                                                  if k not in ("model", "num_tokens")}))
+    save_bundle(root / "gaussian", jax.jit(gm.init)(jax.random.PRNGKey(2)), gmeta, symmap,
+                {"spk": 0})
     return root
 
 
-@pytest.mark.parametrize("case,match", [("mesh_tp", "item 14"), ("gaussian", "not ported yet")])
+@pytest.mark.parametrize("case,match", [("mesh_tp", "item 14"), ("gaussian", "D3PM samplers")])
 def test_serve_cli_refusals(tiny_bundles, capsys, case, match):
+    """``--mesh-tp 2`` is not ported; a Gaussian bundle is served, but the
+    D3PM's ``--stride`` is refused for it."""
     argv = ["--device", "cpu", "--nar-ckpt", str(tiny_bundles / "nar"), "--ar-ckpt",
             str(tiny_bundles / ("gaussian" if case == "gaussian" else "diffusion"))]
-    if case == "mesh_tp":
-        argv += ["--mesh-tp", "2"]
+    argv += ["--mesh-tp", "2"] if case == "mesh_tp" else ["--stride", "3"]
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
     assert e.value.code == 2 and match in capsys.readouterr().err

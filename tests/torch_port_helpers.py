@@ -63,7 +63,8 @@ def t(a, dtype=None):
 
 class TableKeys:
     """Port-side stand-in for ``RowKeys``: ``fold(tag)`` selects a tag and
-    ``gumbel(shape)`` / ``uniform(shape)`` return the table's noise for it,
+    ``gumbel(shape)`` / ``uniform(shape)`` / ``normal(shape)`` return the
+    table's noise for it,
     so both packages sample from the same numbers.  Tables are keyed by
     (tag, rank) and hold (B, *shape) arrays."""
 
@@ -78,12 +79,12 @@ class TableKeys:
         assert arr.shape[1:] == tuple(shape), (self.tag, arr.shape, shape)
         return torch.from_numpy(arr).to(device)
 
-    uniform = gumbel
+    uniform = normal = gumbel
 
 
 def patch_jax_noise(monkeypatch, module, tables: dict):
-    """Make ``module``'s ``fold_rows`` carry the tag and its ``row_gumbel``
-    and ``row_uniform`` return the same table as ``TableKeys`` (traced tags,
+    """Make ``module``'s ``fold_rows`` carry the tag and its ``row_gumbel``,
+    ``row_uniform`` and ``row_normal`` return the same table as ``TableKeys`` (traced tags,
     a MaskGIT step, an ancestral timestep or a speculative round's, index a
     table stacked over tags, so this also works inside ``lax.scan`` and
     ``lax.while_loop``).  Tables are stacked by the shape of one row's draw,
@@ -111,8 +112,9 @@ def patch_jax_noise(monkeypatch, module, tables: dict):
 
     monkeypatch.setattr(module, "fold_rows", fold_rows)
     monkeypatch.setattr(module, "row_gumbel", row_gumbel)
-    if hasattr(module, "row_uniform"):
-        monkeypatch.setattr(module, "row_uniform", row_gumbel)
+    for name in ("row_uniform", "row_normal"):
+        if hasattr(module, name):
+            monkeypatch.setattr(module, name, row_gumbel)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 """Zero-shot TTS inference CLI on the card (counterpart of ``__main__.py`` in
-the JAX package), for an AR or a D3PM diffusion first stage:
+the JAX package), for an AR, a D3PM or a Gaussian diffusion first stage:
 
     python -m tts_with_diffusion_model_tpu_torch '<text>' ref.wav out.wav \\
         [--ar-ckpt zoo/ar] [--nar-ckpt zoo/nar] [--device cuda] [--seed 0] \\
@@ -11,11 +11,14 @@ up to ``--max-ar-steps`` tokens over a KV cache, or speculatively with a
 ``--draft-ckpt`` proposing ``--spec-k`` tokens per round (at
 ``--temperature 0`` the target's own greedy decode).  A D3PM bundle decodes
 with MaskGIT or the ancestral chain; ``--stride`` above 1 alone selects the
-ancestral chain.
+ancestral chain.  A Gaussian bundle (``diffusion-gaussian*``) runs its whole
+reverse chain at its ``resp_len`` bucket; ``--decode`` and ``--stride`` are
+refused for it.
 
 Every request goes through ``serve.Synthesizer``, at its text bucket (50
-phones for an AR, the bundle's ``text_len`` for a D3PM) and a 128-multiple
-prompt bucket.  The JAX CLI runs an AR unbucketed at B = 1; the pads are
+phones for an AR, the bundle's ``text_len`` for a diffusion bundle) and a
+128-multiple prompt bucket (``prom_len`` for ``-unet2d-ref``, whose
+conditioning flattens the whole prompt).  The JAX CLI runs an AR unbucketed at B = 1; the pads are
 masked, so at temperature 0 both give the same tokens.  A text over the
 text bucket is synthesized in chained segments with one decode of the
 joined codes (``longform.py``); ``--segment-phones N`` forces that path
@@ -29,12 +32,12 @@ from pathlib import Path
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser("VALL-E / D3PM TTS (PyTorch/CUDA)")
+    parser = argparse.ArgumentParser("VALL-E / diffusion TTS (PyTorch/CUDA)")
     parser.add_argument("text")
     parser.add_argument("reference", type=Path)
     parser.add_argument("out_path", type=Path)
     parser.add_argument("--ar-ckpt", type=Path, default=Path("zoo/ar"),
-                        help="first-stage bundle (an AR or a D3PM diffusion bundle)")
+                        help="first-stage bundle (an AR, D3PM or Gaussian diffusion bundle)")
     parser.add_argument("--nar-ckpt", type=Path, default=Path("zoo/nar"))
     parser.add_argument("--codec", type=Path, default=None,
                         help="converted EnCodec weights (.npz); default $ENCODEC_WEIGHTS, "

@@ -8,13 +8,19 @@ decided by the type of the port module that owns the leaf:
   ``Dense``       ``kernel`` (in, out) → ``weight`` (out, in); ``bias``
   ``LayerNorm``   ``scale`` → ``weight``; ``bias``
   ``Embed``       ``embedding`` → ``weight``
+  ``Conv``        ``kernel`` (*K, Cin, Cout) → ``weight`` (Cout, Cin, *K),
+                  1-D or 2-D; ``bias``
+  ``ConvTranspose`` ``kernel`` (K, Cin, Cout) → ``weight`` (Cin, Cout, K)
+                  flipped along K (flax does not flip the kernel, torch's
+                  transposed convolution does); ``bias``
+  ``GroupNorm``, ``MaskedGroupNorm``  ``scale`` → ``weight``; ``bias``
   SEANet convs    ``v`` (K, Cin, Cout) → (Cout, Cin, K), or (Cin, Cout, K) for
                   a transposed conv; ``g`` → (dim 0 of v, 1, 1); ``b``
   ``ResidualLSTM`` ``w_ih_l{n}`` / ``w_hh_l{n}`` (in, 4H) → ``lstm.weight_*_l{n}``
                   (4H, in); ``b_l{n}`` → ``lstm.bias_ih_l{n}``, with
                   ``lstm.bias_hh_l{n}`` set to zero
   anything else   same name, same shape (``MultiEmbedding.weight``,
-                  ``AdaLN.emb``, ``sep``, ``codebooks``)
+                  ``AdaLN.emb``, ``sep``, ``codebooks``, ``resp_table``)
 """
 
 from __future__ import annotations
@@ -23,7 +29,10 @@ import numpy as np
 import torch
 
 from .codec.seanet import ResidualLSTM, StreamableConv1d, StreamableConvTranspose1d
-from .models.base import Dense, Embed, LayerNorm
+from .models.base import Conv, ConvTranspose, Dense, Embed, GroupNorm, LayerNorm
+from .models.unet import MaskedGroupNorm
+
+_NORMS = (LayerNorm, GroupNorm, MaskedGroupNorm)
 
 
 def _leaf_targets(owner, leaf: str, arr: np.ndarray) -> list[tuple[str, np.ndarray]]:
@@ -32,12 +41,18 @@ def _leaf_targets(owner, leaf: str, arr: np.ndarray) -> list[tuple[str, np.ndarr
     if isinstance(owner, Dense):
         if leaf == "kernel":
             return [("weight", arr.T)]
-    elif isinstance(owner, LayerNorm):
+    elif isinstance(owner, _NORMS):
         if leaf == "scale":
             return [("weight", arr)]
     elif isinstance(owner, Embed):
         if leaf == "embedding":
             return [("weight", arr)]
+    elif isinstance(owner, Conv):
+        if leaf == "kernel":
+            return [("weight", np.moveaxis(arr, (-1, -2), (0, 1)))]
+    elif isinstance(owner, ConvTranspose):
+        if leaf == "kernel":
+            return [("weight", arr.transpose(1, 2, 0)[..., ::-1])]
     elif isinstance(owner, StreamableConvTranspose1d):
         if leaf == "v":
             return [("v", arr.transpose(1, 2, 0))]
@@ -99,10 +114,14 @@ def _flax_leaf(owner, leaf: str, val: np.ndarray) -> tuple[str, np.ndarray]:
     array in the flax layout)."""
     if isinstance(owner, Dense) and leaf == "weight":
         return "kernel", val.T
-    if isinstance(owner, LayerNorm) and leaf == "weight":
+    if isinstance(owner, _NORMS) and leaf == "weight":
         return "scale", val
     if isinstance(owner, Embed) and leaf == "weight":
         return "embedding", val
+    if isinstance(owner, Conv) and leaf == "weight":
+        return "kernel", np.moveaxis(val, (0, 1), (-1, -2))
+    if isinstance(owner, ConvTranspose) and leaf == "weight":
+        return "kernel", val[..., ::-1].transpose(2, 0, 1)
     if isinstance(owner, (StreamableConv1d, StreamableConvTranspose1d, ResidualLSTM)):
         raise NotImplementedError("codec parameters are not exported to flax yet")
     return leaf, val
@@ -138,20 +157,21 @@ def tree_path(module: torch.nn.Module, name: str) -> str:
 def init_seeded(module: torch.nn.Module, seed: int) -> None:
     """Random weights drawn from ``seed`` on the CPU (device independent):
     lecun-normal for projection and conv weights, N(0, 1) for embedding
-    tables and codebooks, ones for norm scales and weight-norm gains, zeros
+    tables, ``resp_table`` and codebooks, ones for norm scales and weight-norm gains, zeros
     for biases and AdaLN tables."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-            if isinstance(owner, LayerNorm) and leaf == "weight" or leaf == "g":
+            if isinstance(owner, _NORMS) and leaf == "weight" or leaf == "g":
                 val = torch.ones(p.shape)
             elif leaf in ("bias", "b", "emb") or leaf.startswith("bias_"):
                 val = torch.zeros(p.shape)
-            elif isinstance(owner, (Dense,)) or leaf == "v" or leaf.startswith("weight_"):
-                fan_in = p.shape[1] * (p.shape[2] if p.ndim == 3 else 1)
-                if isinstance(owner, StreamableConvTranspose1d):
+            elif (isinstance(owner, (Dense, Conv, ConvTranspose)) or leaf == "v"
+                  or leaf.startswith("weight_")):
+                fan_in = p[0].numel()
+                if isinstance(owner, (StreamableConvTranspose1d, ConvTranspose)):
                     fan_in = p.shape[0] * p.shape[2]
                 val = torch.randn(p.shape, generator=g) / fan_in ** 0.5
             else:

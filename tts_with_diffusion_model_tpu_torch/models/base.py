@@ -77,6 +77,94 @@ class Embed(nn.Module):
         return self.weight[ids]
 
 
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax ``padding="SAME"`` for one spatial dim: the output has
+    ceil(size / stride) positions, and the padding's odd unit goes after
+    (a stride-2 k3 conv over an even length pads (0, 1), not (1, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """``flax.linen.Conv`` over channel-last input (B, *spatial, Cin) with
+    ``padding="SAME"``: weight (Cout, Cin, *kernel) (the
+    flax kernel (*kernel, Cin, Cout) moved), 1-D or 2-D; a compute ``dtype``
+    casts input, weight and bias as ``Dense`` does."""
+
+    def __init__(self, d_in: int, d_out: int, kernel: tuple, strides: tuple | None = None,
+                 dtype=None):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.strides = tuple(strides) if strides is not None else (1,) * len(self.kernel)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(d_out, d_in, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x):
+        nd = len(self.kernel)
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        h = x.to(dt).movedim(-1, 1)
+        pads = [same_padding(n, k, s) for n, k, s in zip(h.shape[2:], self.kernel, self.strides)]
+        h = F.pad(h, [p for lo_hi in reversed(pads) for p in lo_hi])
+        conv = F.conv1d if nd == 1 else F.conv2d
+        y = conv(h, self.weight.to(dt), self.bias.to(dt), stride=self.strides)
+        return y.movedim(1, -1)
+
+
+class ConvTranspose(nn.Module):
+    """``flax.linen.ConvTranspose`` (1-D, ``padding="SAME"``, flax's default
+    ``transpose_kernel=False``) over channel-last input (B, T, Cin): the
+    output has T·stride positions.  flax correlates the stride-dilated input
+    with its kernel unflipped; torch's transposed convolution scatters
+    with its kernel, so the weight (Cin, Cout, K) is the flax kernel
+    (K, Cin, Cout) moved *and flipped along K*.  The padded dilated input
+    of flax starts ``K − 1 − pad_lo`` positions into torch's unpadded
+    output."""
+
+    def __init__(self, d_in: int, d_out: int, kernel: int, stride: int, dtype=None):
+        super().__init__()
+        self.k, self.stride, self.dtype = int(kernel), int(stride), dtype
+        self.weight = nn.Parameter(torch.zeros(d_in, d_out, self.k))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        k, s = self.k, self.stride
+        # lax.conv_transpose's "SAME" padding of the dilated input
+        pad_lo = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+        T = x.shape[1]
+        y = F.conv_transpose1d(x.to(dt).movedim(-1, 1), self.weight.to(dt), stride=s)
+        start = k - 1 - pad_lo
+        y = y[..., start: start + T * s]
+        if y.shape[-1] < T * s:
+            y = F.pad(y, (0, T * s - y.shape[-1]))
+        return (y + self.bias.to(dt)[:, None]).movedim(1, -1)
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm`` over channel-last input (B, *spatial, C):
+    per (batch, group) statistics over every position and the group's
+    channels, in fp32 with fp32 output; scale and bias fp32.  The variance
+    is flax's one-pass max(0, E[x²] − E[x]²): groups of a few elements
+    (the UNet's bottom level at a short bucket) amplify the difference to
+    a two-pass variance."""
+
+    def __init__(self, num_groups: int, d: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x):
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        xg = x.float().reshape(B, -1, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = ((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return y * self.weight.float() + self.bias.float()
+
+
 def gelu(x):
     """erf-form GELU (flax ``gelu(approximate=False)`` ≡ torch ``nn.GELU``)."""
     return F.gelu(x, approximate="none")

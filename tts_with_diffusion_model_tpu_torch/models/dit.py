@@ -141,6 +141,18 @@ class DiTBlock(nn.Module):
         return x * m
 
 
+def tower_inputs(den, text, text_mask, proms, prom_mask):
+    """The towers' inputs of a denoiser with ``text_emb``, ``proms_emb``,
+    ``d_model`` and ``dtype``: embeddings plus sinusoidal positions, in the
+    compute dtype, zeroed at pads → (text, prompt)."""
+    dt, d = den.dtype, den.d_model
+    te = den.text_emb(text) + sinusoidal_embedding(
+        torch.arange(text.shape[1], device=text.device)[None], d)
+    pe = den.proms_emb(proms) + sinusoidal_embedding(
+        torch.arange(proms.shape[1], device=proms.device)[None], d)
+    return (te.to(dt) * text_mask[..., None].to(dt), pe.to(dt) * prom_mask[..., None].to(dt))
+
+
 class DiTDenoiser(nn.Module):
     """Conditioning towers + N DiT blocks + fp32 logits head.  x_0-prediction:
     noisy level-0 tokens and a timestep → logits over ``n_classes``."""
@@ -173,11 +185,7 @@ class DiTDenoiser(nn.Module):
 
     def conds(self, text, text_mask, proms, prom_mask):
         """Conditioning towers, once per utterance → (text_cond, spkr_cond)."""
-        dt = self.dtype
-        te = self.text_emb(text) + self._positions(text.shape[1], text.device)
-        pe = self.proms_emb(proms) + self._positions(proms.shape[1], proms.device)
-        te = te.to(dt) * text_mask[..., None].to(dt)
-        pe = pe.to(dt) * prom_mask[..., None].to(dt)
+        te, pe = tower_inputs(self, text, text_mask, proms, prom_mask)
         return self.text_tower(te, text_mask), self.prom_tower(pe, prom_mask)
 
     def cond_kv(self, text_cond, spkr_cond):

@@ -22,6 +22,13 @@
    fp32 with the same seeds: p50 per batch of 4, the share of identical
    codes bf16 against fp32, and the first denoiser call's logits.
 
+With ``--zoo-estimator BUNDLE`` it makes the corpus and codes and trains
+the D3PM recipe (steps 1-3 without the NAR), then holds the run's last
+step's EMA against the D3PM bundle (``zoo/diffusion``: the JAX package's
+``gen4c/diffusion`` run, EMA at step 2000, trained on this corpus and
+codec) on the run's val split with both estimators of step 4, and writes
+``report_zoo.json``.
+
 With ``--ar`` it runs the AR chain instead, reusing the workdir's corpus,
 codes and NAR bundle when an earlier run left them (else making them as
 above):
@@ -154,6 +161,23 @@ def parse_train_log(text: str) -> dict:
             "subtrain": [(int(s), float(v)) for v, s, n in evals if n == "subtrain"]}
 
 
+def estimate(model, batches, device) -> dict:
+    """A D3PM's val loss over ``batches`` under ``SEEDS`` generator seeds
+    (sampled t, as the run's own eval: mean, spread, extremes) and averaged
+    over every t (``all_t``)."""
+    def mean_loss(seed: int) -> float:
+        g = torch.Generator(device=device).manual_seed(seed)
+        return float(np.mean([float(model.loss(b, g)[0]) for b in batches]))
+
+    losses = [mean_loss(s) for s in range(SEEDS)]
+    sampled = model.config
+    model.config = dataclasses.replace(sampled, train_mode="all_t")
+    all_t = mean_loss(0)
+    model.config = sampled
+    return {"mean": float(np.mean(losses)), "std": float(np.std(losses)), "min": min(losses),
+            "max": max(losses), "all_t": all_t}
+
+
 @torch.no_grad()
 def val_spread(run: Run, steps: list[int]) -> dict:
     """At each checkpoint step: the D3PM's val loss under ``SEEDS``
@@ -172,25 +196,55 @@ def val_spread(run: Run, steps: list[int]) -> dict:
         model = engine.module
         _, _, val_dl = create_train_val_dataloader(cfg, make_bucket(cfg, model))
         batches = [batch_to_device(b, run.device) for b in val_dl]
-
-        def mean_loss(seed: int) -> float:
-            g = torch.Generator(device=run.device).manual_seed(seed)
-            return float(np.mean([float(model.loss(b, g)[0]) for b in batches]))
-
         out[step] = {}
         for weights in ("raw", "ema"):
             if weights == "ema":
                 for p, e in zip(engine.params, engine.ema):
                     p.copy_(e)
-            losses = [mean_loss(s) for s in range(SEEDS)]
-            sampled = model.config
-            model.config = dataclasses.replace(sampled, train_mode="all_t")
-            all_t = mean_loss(0)
-            model.config = sampled
-            out[step][weights] = {"mean": float(np.mean(losses)), "std": float(np.std(losses)),
-                                  "min": min(losses), "max": max(losses), "all_t": all_t}
+            out[step][weights] = estimate(model, batches, run.device)
         run.log(f"val spread at step {step}: {json.dumps(out[step])}")
         del engine, model, batches
+    return out
+
+
+@torch.no_grad()
+def zoo_estimate(run: Run, zoo_bundle: Path, step: int) -> dict:
+    """The JAX package's own run and the port's, side by side: the D3PM
+    bundle ``zoo_bundle`` (``zoo/diffusion``: JAX's ``gen4c/diffusion`` run,
+    EMA weights at step 2000) and the port's EMA at ``step`` of this run,
+    each through ``estimate`` on this run's val split, in the run's compute
+    dtype.  The bundle's phone symmap must be the run's (the same corpus
+    through the same g2p), else its ids would mean other phones."""
+    from .config import Config
+    from .data.dataset import create_datasets, create_train_val_dataloader
+    from .serve import load_model
+    from .train.engine import batch_to_device
+    from .train.train import load_engines, make_bucket
+
+    cfg = Config.from_cli([*run.d3pm, f"restore_step={step}"])
+    engine = load_engines(cfg)["model"]
+    port = engine.module
+    port_step = engine.global_step
+    for p, e in zip(engine.params, engine.ema):
+        p.copy_(e)
+    zoo, zoo_symmap = load_model(zoo_bundle, port.denoiser.dtype)
+    zoo = zoo.to(run.device).eval()
+    train_ds, _ = create_datasets(cfg)
+    same_symmap = zoo_symmap == train_ds.phone_symmap
+    if not same_symmap:
+        raise RuntimeError(f"{zoo_bundle}'s phone symmap is not this corpus's")
+    meta = json.loads((Path(zoo_bundle) / "model.json").read_text())
+    _, _, val_dl = create_train_val_dataloader(cfg, make_bucket(cfg, port))
+    batches = [batch_to_device(b, run.device) for b in val_dl]
+    out = {"val_utterances": sum(int(b["text"].shape[0]) for b in batches),
+           "zoo": {"bundle": str(zoo_bundle), "step": meta.get("step"),
+                   "weights": meta.get("weights"), **estimate(zoo, batches, run.device)},
+           "port": {"step": port_step, "weights": "ema", **estimate(port, batches, run.device)},
+           "same_phone_symmap": same_symmap}
+    gap = abs(out["zoo"]["all_t"] - out["port"]["all_t"])
+    out["all_t_gap"] = gap
+    out["within_spread"] = gap <= max(out["zoo"]["std"], out["port"]["std"])
+    run.log(f"zoo estimator: {json.dumps(out)}")
     return out
 
 
@@ -427,6 +481,10 @@ def main(argv: list[str] | None = None) -> dict:
                         help="converted EnCodec weights (default: as emb.qnt finds them)")
     parser.add_argument("--tiny", action="store_true",
                         help="2 speakers, 4 steps, d32 models: a CPU rehearsal")
+    parser.add_argument("--zoo-estimator", type=Path, default=None, metavar="BUNDLE",
+                        help="train the D3PM recipe only, then hold its last step's EMA "
+                             "against this D3PM bundle (zoo/diffusion) on the same val split "
+                             "with the 16-seed and all-t estimators; writes report_zoo.json")
     parser.add_argument("--ar", action="store_true",
                         help="the AR chain (train ar and ar-quarter, export, serve, "
                              "speculative decoding), reusing the workdir's corpus, codes and "
@@ -439,6 +497,15 @@ def main(argv: list[str] | None = None) -> dict:
     run = Run(args.workdir, args.device, find_weights(args.codec), args.tiny)
     run.work.mkdir(parents=True, exist_ok=True)
     run.log(f"{run.report['device']}; codec weights {run.codec}")
+    if args.zoo_estimator is not None:
+        prepare_data(run, args.device, args.tiny)
+        run.report["d3pm"] = parse_train_log(run.step("train_d3pm", "-m", f"{PKG}.train",
+                                                      *run.d3pm))
+        last = max(s for s, _ in run.report["d3pm"]["val"])
+        run.report["zoo_estimator"] = zoo_estimate(run, args.zoo_estimator, last)
+        run.save("report_zoo.json")
+        print(json.dumps(run.report["zoo_estimator"], default=str))
+        return run.report
     if args.ar:
         report = run_ar(run, args.device, args.tiny)
         print(json.dumps(report["ar_serve"] | {"exported": report["exported"]}, default=str))

@@ -1,5 +1,5 @@
 """Serving runtime (counterpart of ``serve.py`` in the JAX package), for a
-D3PM or an AR first stage.
+D3PM, a Gaussian or an AR first stage.
 
 ``Synthesizer`` runs one device batch: the first stage, then NAR levels
 1..7, then EnCodec:
@@ -7,6 +7,10 @@ D3PM or an AR first stage.
   bucket (MaskGIT, the default, or the ancestral chain, every process step
   or a stride of them); the batch is decoded together at a fixed decode
   bucket and trimmed to ``gen_len`` frames;
+- a Gaussian first stage runs its whole reverse chain (``timesteps``
+  denoiser calls) at the model's ``resp_len`` bucket, with no MaskGIT,
+  stride or tight bucket (as the JAX package's), then the same NAR and
+  decode;
 - an AR first stage decodes up to ``max_ar_steps`` tokens over a KV cache
   (``ar_generate``, or ``ar_generate_speculative`` with a draft bundle); the
   NAR runs at the ``max_ar_steps`` response bucket with each row masked to
@@ -65,6 +69,7 @@ import torch
 from .codec.encodec import HOP, SAMPLE_RATE, Codec
 from .models.ar import AR, ar_generate, ar_generate_speculative
 from .models.diffusion import DiffusionModel, ancestral_schedule
+from .models.gaussian_tts import GaussianDiffusionModel
 from .models.nar import NAR, nar_generate
 from .utils.device import resolve_device
 from .utils.rng import RowKeys
@@ -73,7 +78,8 @@ _logger = logging.getLogger(__name__)
 
 
 class Synthesizer:
-    """text + reference wav → wav, for a D3PM or AR first stage + NAR + codec."""
+    """text + reference wav → wav, for a D3PM, Gaussian or AR first stage +
+    NAR + codec."""
 
     #: prompt-length buckets are 128-frame multiples
     PROM_BUCKET = 128
@@ -86,13 +92,15 @@ class Synthesizer:
     #: config)
     AR_TEXT_LEN, AR_PROM_LEN = 50, 398
 
-    def __init__(self, first: DiffusionModel | AR, nar: NAR, codec: Codec, phone_symmap: dict,
+    def __init__(self, first: DiffusionModel | GaussianDiffusionModel | AR, nar: NAR,
+                 codec: Codec, phone_symmap: dict,
                  *, device="cuda", max_batch: int = 1, decode: str | None = None,
                  stride: int = 1, maskgit_steps: int = 12, temperature: float = 1.0,
                  nar_temperature: float = 0.2, bf16: bool = True, max_ar_steps: int = 448,
                  draft: AR | None = None, spec_k: int = 4):
         """``decode`` is "maskgit" or "ancestral"; None means ancestral when
-        ``stride`` > 1 (a knob of the ancestral chain), else MaskGIT.  A D3PM
+        ``stride`` > 1 (a knob of the ancestral chain), else MaskGIT; both
+        are the D3PM's and refused for a Gaussian first stage.  A diffusion
         bundle's config sets the text, prompt and generation lengths; an AR
         first stage decodes up to ``max_ar_steps`` tokens, and a ``draft``
         AR turns on speculative decoding with ``spec_k`` proposals per
@@ -101,8 +109,10 @@ class Synthesizer:
 
         self.device = resolve_device(device)
         self.is_ar = isinstance(first, AR)
-        if not self.is_ar and not isinstance(first, DiffusionModel):
-            raise ValueError("the first stage must be a D3PM diffusion model or an AR")
+        self.is_gaussian = isinstance(first, GaussianDiffusionModel)
+        if not (self.is_ar or self.is_gaussian or isinstance(first, DiffusionModel)):
+            raise ValueError("the first stage must be a D3PM or Gaussian diffusion model "
+                             "or an AR")
         if draft is not None:
             check_draft(first, draft)
         self.first = first.to(self.device).eval()
@@ -130,6 +140,13 @@ class Synthesizer:
             return
         c = first.config
         self.text_len, self.prom_len, self.gen_len = c.text_len, c.prom_len, c.gen_len
+        if self.is_gaussian:
+            if decode is not None or int(stride) != 1:
+                raise ValueError(f"decode={decode!r} stride={stride} are D3PM samplers; a "
+                                 "Gaussian first stage runs its whole reverse chain")
+            self.decode, self.stride = "gaussian", 1
+            self.resp_bucket = c.resp_len
+            return
         self.decode = resolve_decode(decode, stride)
         self.stride = max(1, int(stride))
         self.maskgit_steps = max(1, min(int(maskgit_steps), c.gen_len))
@@ -138,9 +155,9 @@ class Synthesizer:
     @classmethod
     def from_bundles(cls, ar_ckpt, nar_ckpt, codec_weights, *, device="cuda",
                      bf16: bool = True, draft_ckpt=None, **kw) -> "Synthesizer":
-        """Load a first-stage bundle (D3PM or AR), a NAR bundle, converted
-        codec weights (``codec_weights`` None: weights drawn from seed 0) and,
-        for an AR first stage, an optional draft AR bundle."""
+        """Load a first-stage bundle (D3PM, Gaussian or AR), a NAR bundle,
+        converted codec weights (``codec_weights`` None: weights drawn from
+        seed 0) and, for an AR first stage, an optional draft AR bundle."""
         from .bundle import load_meta
         from .codec.encodec import load_codec
 
@@ -148,12 +165,10 @@ class Synthesizer:
         dtype = torch.bfloat16 if bf16 else torch.float32
         first_name = load_meta(ar_ckpt)["model"].lower()
         nar_name = load_meta(nar_ckpt)["model"].lower()
-        if (first_name.startswith("diffusion-gaussian")
-                or not first_name.startswith(("diffusion", "ar"))
-                or not nar_name.startswith("nar")):
-            raise NotImplementedError(
-                f"{ar_ckpt} ({first_name}) + {nar_ckpt} ({nar_name}): not ported yet for "
-                "serving (a D3PM diffusion or AR bundle with a NAR bundle is)")
+        if not first_name.startswith(("diffusion", "ar")) or not nar_name.startswith("nar"):
+            raise ValueError(
+                f"{ar_ckpt} ({first_name}) + {nar_ckpt} ({nar_name}): a first stage "
+                "(diffusion, diffusion-gaussian* or ar*) and a nar* bundle are served")
         first, phone_symmap = load_model(ar_ckpt, dtype)
         nar, _ = load_model(nar_ckpt, dtype)
         draft = load_model(draft_ckpt, dtype)[0] if draft_ckpt is not None else None
@@ -232,6 +247,8 @@ class Synthesizer:
     # ---------------- device batch ----------------
 
     def prompt_bucket(self, rows) -> int:
+        if getattr(self.first, "full_prompt", False):
+            return self.prom_len
         pn = max(int(r["prom_n"]) for r in rows)
         return min(self.prom_len, max(1, -(-pn // self.PROM_BUCKET)) * self.PROM_BUCKET)
 
@@ -260,7 +277,9 @@ class Synthesizer:
         with self._lock:
             if self.is_ar:
                 return self._ar_batch(text, tm, proms, pm, keys, n_req, want_wav)
-            if self.decode == "maskgit":
+            if self.is_gaussian:
+                toks = self.first.generate(text, tm, proms, pm, keys.fold(0))
+            elif self.decode == "maskgit":
                 toks = self.first.generate_maskgit(
                     text, tm, proms, pm, keys.fold(0), steps=self.maskgit_steps,
                     temperature=self.temperature, resp_bucket=self.resp_bucket)
@@ -409,7 +428,10 @@ class Synthesizer:
     @property
     def denoiser_calls(self) -> int:
         """Denoiser evaluations of the first stage per batch: the MaskGIT
-        steps, or one per process step of the ancestral chain's schedule."""
+        steps, one per process step of the ancestral chain's schedule, or a
+        Gaussian chain's ``timesteps``."""
+        if self.is_gaussian:
+            return self.first.config.timesteps
         if self.decode == "maskgit":
             return self.maskgit_steps
         return len(ancestral_schedule(self.first.config.timesteps, self.stride)[0])
@@ -453,15 +475,20 @@ def load_model(bundle, dtype=torch.bfloat16):
 
 def build_model(meta: dict, dtype=torch.bfloat16):
     """Rebuild an exported architecture from ``model.json``: the registry's
-    dims (diffusion d512/8/8; ar, nar d1024/16/12; ``-half``, ``-quarter``)
-    under the bundle's own ``d_model`` / ``n_heads`` / ``n_layers``."""
+    dims (diffusion d512/8/8; ar, nar d1024/16/12; ``-half``, ``-quarter``;
+    the Gaussian names' domain and denoiser) under the bundle's own
+    hyperparameters (JSON lists become the config's tuples)."""
     from .models import get_model
     from .models.diffusion import DiffusionConfig
 
     name = meta["model"].lower()
     num_tokens = meta.get("num_tokens", 1024)
     if name.startswith("diffusion-gaussian"):
-        raise NotImplementedError("the Gaussian diffusion family is not ported yet")
+        ov = {k: tuple(meta[k]) if isinstance(meta[k], list) else meta[k] for k in (
+            "d_model", "n_heads", "n_layers", "timesteps", "schedule", "domain", "resp_len",
+            "text_len", "prom_len", "gen_len", "unet_dims", "denoiser", "unet_channels")
+            if k in meta}
+        return get_model(name, num_tokens, ov, dtype=dtype)
     if name.startswith("diffusion"):
         kw = {k: meta[k] for k in (
             "d_model", "n_heads", "n_layers", "timesteps", "resp_len", "text_len",
@@ -470,7 +497,8 @@ def build_model(meta: dict, dtype=torch.bfloat16):
     if name.startswith(("ar", "nar")):
         dims = {k: meta[k] for k in ("d_model", "n_heads", "n_layers") if k in meta}
         return get_model(name, num_tokens, dims, dtype=dtype)
-    raise ValueError(f"unknown model family {name!r}")
+    raise ValueError(f"unknown model family {name!r}: the port builds diffusion, "
+                     "diffusion-gaussian*, ar* and nar* bundles")
 
 
 class Batcher:

@@ -141,6 +141,11 @@ def packed_attention_sites(model, cfg, name: str, path: str) -> list[TrainSite]:
 
 def step_sites(model, cfg) -> list[TrainSite]:
     """The training kernel's sites in one train step of ``model``."""
+    if cfg.model.startswith("diffusion-gaussian"):
+        from .smoke_gaussian import path_name, train_sites
+
+        return train_sites(model, cfg.batch_size, min(cfg.resp_len_buckets),
+                           path_name(cfg.model))
     if hasattr(model, "denoiser"):
         return train_attention_sites(model, cfg.batch_size, min(cfg.resp_len_buckets))
     family = "ar" if model.base.blocks()[0].attn.causal else "nar"
@@ -152,6 +157,12 @@ def eval_attentions(model) -> tuple[str, int]:
     """Which kernel the val-loss eval (under ``no_grad``) runs, and its
     launches per eval batch: the serving kernel for non-causal attention,
     the training kernel's forward for the AR's causal one."""
+    from .models.gaussian_tts import GaussianDiffusionModel
+
+    if isinstance(model, GaussianDiffusionModel):
+        from .smoke_gaussian import eval_launches
+
+        return "masked_attention", eval_launches(model)
     if hasattr(model, "denoiser"):
         den = model.denoiser
         return "masked_attention", den.text_tower.n_layers + den.prom_tower.n_layers + 3 * den.n_layers
@@ -511,11 +522,12 @@ def profile_train_step(engines, cfg) -> dict:
 
 
 def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, overrides=(),
-                corpus=None) -> dict:
+                corpus=None, run_name: str | None = None) -> dict:
     """``train.main`` on the recipe ``yaml`` with its paths pointed into
-    ``build/smoke/<recipe>`` and ``steps`` steps, checkpoint and eval at
-    the last; then the checks.  ``overrides`` (``key=value``) shrink the
-    model for CPU rehearsals; ``corpus`` = (speakers, utterances, frames,
+    ``build/smoke/<recipe>`` (``_<run_name>`` appended when given) and
+    ``steps`` steps, checkpoint and eval at the last; then the checks.
+    ``overrides`` (``key=value``) shrink the model for CPU rehearsals or
+    name another model; ``corpus`` = (speakers, utterances, frames,
     phones)."""
     from .config import Config
     from .train import train as train_cli
@@ -523,6 +535,8 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
 
     data = SMOKE_DIR / "train_data"
     out = SMOKE_DIR / f"train_{Path(yaml).parent.name}_{Path(yaml).stem}"
+    if run_name:
+        out = out.with_name(f"{out.name}_{run_name}")
     for d in (data, out):
         shutil.rmtree(d, ignore_errors=True)
     n_spk, n_utt, frames, phones = corpus or (8, 12, (60, 168), (3, 50))
@@ -553,6 +567,8 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     data_logger.addHandler(loader_lines)
     fn.launches = fn.backward_launches = fn.plain_calls = 0
     serve.launches = serve.plain_calls = 0
+    # the run's own peak: memory that earlier phases still hold is left out
+    held = torch.cuda.memory_allocated(device) if device.type == "cuda" else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -562,7 +578,7 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
         train_logger.removeHandler(evals)
         data_logger.removeHandler(loader_lines)
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    peak = torch.cuda.max_memory_allocated(device) - held if device.type == "cuda" else None
     engine = engines["model"]
     on_card = device.type == "cuda"
 
@@ -602,8 +618,12 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
         check(fn.backward_launches == prev[1], "the eval ran a backward")
         served = (fn.launches - prev[0] if on_card else fn.plain_calls - prev[2]) - sum(
             d["kernel2_fwd" if on_card else "plain"] for d in decodes)
-    check(served > 0 and served % per_eval_batch == 0,
-          f"eval {eval_kernel} calls {served} are not a positive multiple of {per_eval_batch}")
+    if per_eval_batch:
+        check(served > 0 and served % per_eval_batch == 0,
+              f"eval {eval_kernel} calls {served} are not a positive multiple of "
+              f"{per_eval_batch}")
+    else:  # a model without kernel sites (the UNet2DCondition)
+        check(served == 0, f"eval {eval_kernel} calls {served} from a model without sites")
     if on_card:
         check(serve.plain_calls == fn.plain_calls == 0, "a plain version ran on the card")
 
@@ -636,7 +656,7 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     frames = cfg.batch_size * bucket
     out_d = {"engines": engines, "cfg": cfg, "steps": steps, "wall_s": wall, "step_s": times,
              "p50_step_s": p50, "p90_step_s": p90, "frames_per_s": frames / p50,
-             "peak_bytes": peak, "loader": loader, "decodes": decodes,
+             "peak_bytes": peak, "held_bytes": held, "loader": loader, "decodes": decodes,
              "fwd_per_step": want_fwd, "bwd_per_step": want_bwd,
              "run_launches": prev[0] + prev[1], "eval_kernel": eval_kernel,
              "eval_launches": served, "eval_per_batch": per_eval_batch, "eval": eval_lines,
@@ -644,11 +664,12 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
              "losses": [r[0]["model.loss"] for r in records], "sites": sites,
              "checkpoint": str(ckpt), "argv": argv}
     where = "host clock around synchronised steps" if on_card else "cpu"
+    mem = "n/a" if peak is None else (f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+                                      "held before the run")
     log(f"train {cfg.model}: {steps} steps in {wall:.1f} s on the {loader} loader; step p50 "
         f"{p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms ({where}), first {times[0] * 1e3:.1f} ms; "
         f"{out_d['frames_per_s']:.0f} padded frames/s "
-        f"(B={cfg.batch_size} x bucket {bucket}); peak allocated "
-        f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
+        f"(B={cfg.batch_size} x bucket {bucket}); peak allocated {mem}")
     log(f"train {cfg.model}: kernel launches per step {per_step_counts[0]} (fwd, bwd, plain) = "
         f"{want_fwd} fwd + {want_bwd} bwd derived from the config; eval: {served} {eval_kernel} "
         f"calls ({per_eval_batch} per batch); losses {[round(x, 4) for x in out_d['losses']]}")

@@ -2,15 +2,16 @@
 yaml=<cfg> [key=value ...]`` (counterpart of ``train/train.py`` in the JAX
 package).
 
-Builds the model from ``cfg.model`` (``diffusion*``, ``ar*``, ``nar*``),
+Builds the model from ``cfg.model`` (``diffusion*``, ``diffusion-gaussian*``,
+``ar*``, ``nar*``),
 wraps its loss feeder in an ``Engine`` on ``cfg.device`` (the card unless
 ``device=cpu``), resumes from the latest checkpoint, and hands everything to
 the generic loop.  Eval computes the val loss under ``no_grad`` through the
 same feeder with a generator seeded from 0, so the AR's and NAR's eval
 runs with dropout on, as the JAX package's does.  With
 ``eval_decode_audio`` it then generates for the eval's first batch (the
-AR's ``ar_generate``, the NAR given level 0, the diffusion model's
-ancestral chain), decodes hypotheses and references with the codec, and
+AR's ``ar_generate``, the NAR given level 0, the D3PM's ancestral chain, the
+Gaussian model's T-step chain), decodes hypotheses and references with the codec, and
 writes ``hyp/`` and ``ref/`` wavs and ``metrics.json`` (token accuracy per
 level, DTW mel-cepstral distortion) under ``log_dir/<step>/<name>/``.  On
 the card a non-causal eval attention runs the serving kernel and a causal
@@ -88,8 +89,8 @@ def make_bucket(cfg: Config, model) -> BucketSpec:
 def make_loss_fn(cfg: Config, model):
     """The per-family loss feeder ``loss_fn(module, batch, generator)`` →
     (loss, stats).  The generator drives every draw of the step: the
-    diffusion timesteps and corruption (``max_train_diffusion_steps`` caps
-    t), the NAR's levels (uniform in [0, 7) per row) and the AR's and NAR's
+    diffusion timesteps and corruption or noise (``max_train_diffusion_steps``
+    caps t, for the D3PM and the Gaussian family: its val loss is the MSE), the NAR's levels (uniform in [0, 7) per row) and the AR's and NAR's
     dropout."""
     name = cfg.model.lower()
     if name.startswith("diffusion"):
@@ -197,7 +198,8 @@ def generate_codes(cfg: Config, module, batch: dict, step: int) -> list[np.ndarr
     """The eval batch's hypotheses, each (t_i, q) codes over the reference's
     span: the AR's tokens up to its stop (``max_val_ar_steps``), the NAR's
     eight levels given level 0, the diffusion model's ancestral chain (stride
-    1) cut to the reference's length.  Row i draws from ``RowKeys`` of seed
+    1), or the Gaussian model's chain over every process step, cut to the
+    reference's length.  Row i draws from ``RowKeys`` of seed
     i folded with ``step``."""
     dev = next(module.parameters()).device
     arrays = batch_to_device(batch, dev)

@@ -7,7 +7,8 @@ folding a tag into each row's key, and every draw is made row by row from a
 ``torch.Generator`` seeded with that row's folded key.  Torch cannot
 reproduce JAX's threefry streams, so parity with the JAX package is defined
 under injected noise: samplers take any object with this class's ``fold`` /
-``gumbel`` methods, and the tests hand both packages the same numbers.
+``gumbel`` / ``uniform`` / ``normal`` methods, and the tests hand both
+packages the same numbers.
 """
 
 from __future__ import annotations
@@ -54,6 +55,15 @@ class RowKeys:
         shape = tuple(shape)
         return torch.stack([
             torch.rand(shape, generator=g, device=device, dtype=torch.float32)
+            for g in self._generators(device)
+        ])
+
+    def normal(self, shape, device="cpu") -> torch.Tensor:
+        """(B, *shape) fp32 standard normals, row by row (the Gaussian
+        family's initial noise and reverse-step draws)."""
+        shape = tuple(shape)
+        return torch.stack([
+            torch.randn(shape, generator=g, device=device, dtype=torch.float32)
             for g in self._generators(device)
         ])
 
