@@ -37,7 +37,17 @@ exported with ``--ema`` and round-tripped, and ``-unet2d-ref`` at its
 published widths for 2 steps from seeded weights, each served through a
 ``Synthesizer`` over the exported NAR (100 denoiser calls, 2488 / 788 / 84
 kernel-1 launches per batch) with fp32 codes held identical alone and in a
-cohort of 4 through the ``Batcher``.  Builds every
+cohort of 4 through the ``Batcher``; then codec + evals: a
+``make_gen_corpus.py`` corpus (8 speakers × 11 utterances), ``codec.calibrate``
+at 8 levels × 1024 codes × 128 dims from the seeded codec (the residual RMS
+falling level by level), ``emb.qnt`` with the calibrated codec, 8 steps of
+the ``codec.train`` CLI on ``diffusion.yml`` (B=32, 150-frame segments,
+reloaded bit for bit), and the four evaluation entry points
+(``heldout_eval`` ancestral, MaskGIT and AR, ``speaker_transfer_eval``,
+``quality_gate``, ``longform_seam_eval``) on the exported D3PM, NAR and AR,
+each writing the JAX records' JSON keys with every kernel launch counted
+and both kernels held to their plain versions at the shapes they gave.
+Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
 wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
 kernel against its plain PyTorch version at every shape these paths give it
@@ -80,6 +90,7 @@ def main() -> int:
             smoke_export,
             smoke_gaussian,
             smoke_gen4b,
+            smoke_codec,
             smoke_serve,
             smoke_train,
         )
@@ -267,9 +278,24 @@ def main() -> int:
             runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
     train_results += g_train
     del gs
+    torch.cuda.empty_cache()
+    # the codec's bootstrap and the four evaluations over the exported bundles
+    with smoke.phase("codec + evals"):
+        ce = smoke_codec.phase_codec_evals(
+            device, {"d3pm": d3pm_bundle, "nar": nar_bundle, "ar": ar_bundle}, seed=args.seed)
+    tr = ce["train"]
+    smoke.log(f"codec train: step p50 {tr['p50_step_s'] * 1e3:.1f} ms, p90 "
+              f"{tr['p90_step_s'] * 1e3:.1f} ms, peak allocated (the run's own) "
+              f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
+    smoke.log("codec + evals seconds: " + ", ".join(
+        f"{name} {r['seconds']:.2f}" for name, r in ce["evals"]["runs"].items())
+        + f" on {info['smi']}")
+    paths.update(ce["kernels"]["paths1"])
+    train_results += ce["kernels"]["kernel2"]
+    eval_runs += ce["kernels"]["runs2"]
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
                                     paths, checked=[*ar_nar_results, *d3pm_decode_results,
-                                                    *g_serve]),
+                                                    *g_serve, *ce["kernels"]["kernel1"]]),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

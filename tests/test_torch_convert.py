@@ -13,10 +13,10 @@ import torch
 
 from tts_with_diffusion_model_tpu_torch.bundle import load_bundle, load_npz
 from tts_with_diffusion_model_tpu_torch.codec.encodec import EncodecModel
-from tts_with_diffusion_model_tpu_torch.convert import (cast_params_bf16, init_seeded,
-                                                         jax_params_to_torch)
+from tts_with_diffusion_model_tpu_torch.convert import init_seeded, jax_params_to_torch
 from tts_with_diffusion_model_tpu_torch.models.base import Dense
 from tts_with_diffusion_model_tpu_torch.serve import build_model
+from tts_with_diffusion_model_tpu_torch.utils.precision import cast_params_bf16
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "tts_with_diffusion_model_tpu_torch"
@@ -134,7 +134,11 @@ def test_port_and_chip_smoke_import_without_jax():
                 "ops.train_flash_attention", "ops.route", "models", "models.ar", "models.nar",
                 "smoke_train", "export", "emb.g2p", "emb.qnt", "smoke_export", "smoke_ar",
                 "serve", "longform", "smoke_serve", "data.native_loader", "utils.profiling",
-                "utils.metrics", "utils.diagnostic"):
+                "utils.metrics", "utils.diagnostic", "utils.helpers", "utils.precision",
+                "utils.artifacts", "codec.losses", "codec.train", "codec.calibrate",
+                "codec.convert", "compat.reference", "compat.import_reference",
+                "scripts.heldout_eval", "scripts.speaker_transfer_eval", "scripts.quality_gate",
+                "scripts.longform_seam_eval", "smoke_codec"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

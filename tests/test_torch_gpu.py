@@ -371,7 +371,8 @@ def _ar_batch(cuda, B=4, pb=256, seed=9):
 
 
 def _seeded_ar(cuda, name, dtype, seed):
-    from tts_with_diffusion_model_tpu_torch.convert import cast_params_bf16, init_seeded
+    from tts_with_diffusion_model_tpu_torch.convert import init_seeded
+    from tts_with_diffusion_model_tpu_torch.utils.precision import cast_params_bf16
     from tts_with_diffusion_model_tpu_torch.models import get_model
 
     model = get_model(name, 1024, dtype=dtype)

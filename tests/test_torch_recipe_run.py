@@ -98,3 +98,25 @@ def test_zoo_estimator_holds_a_bundle_against_the_run(tiny_run):
     if report["exported"]["d3pm"]["step"] == 4:
         assert out["zoo"] == {**out["port"], "bundle": out["zoo"]["bundle"]}
         assert out["all_t_gap"] == 0 and out["within_spread"]
+
+
+def test_recipe_run_zoo_evals_on_the_workdir_bundles(tiny_run):
+    """``--zoo-evals`` on the tiny chain's exported D3PM, NAR and AR (made
+    by the AR chain above when this runs alone): every evaluation and
+    metric of the JAX records at one seed, beside the record's value."""
+    tmp_path, _ = tiny_run
+    if not (tmp_path / "zoo" / "ar" / "model.json").exists():
+        recipe_run.main([str(tmp_path), "--device", "cpu", "--tiny", "--ar"])
+    report = recipe_run.main([str(tmp_path), "--device", "cpu", "--tiny", "--zoo-evals",
+                              str(tmp_path / "zoo")])["zoo_evals"]
+    assert json.loads((tmp_path / "report_zoo_evals.json").read_text())["zoo_evals"] == report
+    assert report["seeds"] == [0]
+    for name, metrics in recipe_run.ZOO_METRICS.items():
+        entry = report[name]
+        assert entry["seconds"] > 0 and entry["record"] == recipe_run.ZOO_RECORDS[name][0]
+        for key in metrics:
+            m = entry[key]
+            assert len(m["values"]) == 1 and m["min"] <= m["mean"] <= m["max"]
+            assert m["record"] is not None  # the records are in benchmarks/gen_r4
+    assert report["heldout ancestral"]["level0_acc"]["record"] == 0.0136
+    assert report["longform_seam"]["n_segments"]["record"] == 5

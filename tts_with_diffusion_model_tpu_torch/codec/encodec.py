@@ -41,6 +41,22 @@ class EncodecModel(nn.Module):
     def decode(self, codes):
         return self.decoder(self.quantizer.decode(codes))
 
+    # ---- training-path methods (``codec/losses.py``), with gradients ----
+
+    def encode_latents(self, wav):
+        """wav (B, T, 1) → pre-quantization latents (B, frames, D)."""
+        return self.encoder(wav)
+
+    def quantize_latents(self, z, num_quantizers: int = 8):
+        """latents → (z_q, codes): the summed codebook rows of the nearest
+        codes, differentiable in the codebooks; codes (B, Q, frames)."""
+        codes = self.quantizer.encode(z, num_quantizers)
+        return self.quantizer.decode(codes), codes
+
+    def decode_latents(self, z):
+        """latents (B, frames, D) → wav (B, T, 1)."""
+        return self.decoder(z)
+
 
 class Codec:
     """Host-facing codec: numpy in, numpy out, model on ``device``."""
@@ -56,6 +72,16 @@ class Codec:
         wav = convert_audio(wav, sr, SAMPLE_RATE, target_channels=1)
         x = torch.as_tensor(wav, dtype=torch.float32, device=self.device)[None, :, None]
         return self.model.encode(x, num_quantizers)[0].cpu().numpy()
+
+    @torch.no_grad()
+    def encode_latents(self, wav: np.ndarray, sr: int = SAMPLE_RATE) -> np.ndarray:
+        """wav (T,) or (C, T) float → pre-quantization latents (frames, D)
+        float32 (codebook calibration, ``codec/calibrate.py``)."""
+        from ..audio.wavio import convert_audio
+
+        wav = convert_audio(wav, sr, SAMPLE_RATE, target_channels=1)
+        x = torch.as_tensor(wav, dtype=torch.float32, device=self.device)[None, :, None]
+        return self.model.encode_latents(x)[0].cpu().numpy()
 
     def decode(self, codes: np.ndarray) -> tuple[np.ndarray, int]:
         """codes (Q, frames) → (wav (T,), sr); (B, Q, frames) → ((B, T), sr)."""
@@ -85,16 +111,30 @@ def find_weights(explicit: str | Path | None = None) -> Path | None:
 
 def load_codec(weights_path: str | Path | None, device="cuda", seed: int = 0) -> Codec:
     """Codec with the converted weights at ``weights_path`` (an ``.npz`` of
-    flax paths, e.g. ``zoo/encodec_24khz.npz``), or with weights drawn from
-    ``seed`` when ``weights_path`` is None."""
+    flax paths, e.g. ``zoo/encodec_24khz.npz``), at their widths, or at the
+    published widths with weights drawn from ``seed`` when ``weights_path``
+    is None.  Each call builds a new codec: nothing is cached, so there is
+    nothing to unload."""
     from ..bundle import load_npz
-    from ..convert import init_seeded, jax_params_to_torch
+    from ..convert import init_seeded
 
-    model = EncodecModel()
     if weights_path is None:
+        model = EncodecModel()
         init_seeded(model, seed)
         _logger.warning("codec weights drawn from seed %d (not pretrained)", seed)
         return Codec(model, device)
-    jax_params_to_torch(load_npz(weights_path), model)
+    codec = codec_from_params(load_npz(weights_path), device)
     _logger.info("codec weights loaded from %s", weights_path)
+    return codec
+
+
+def codec_from_params(flat: dict, device="cuda") -> Codec:
+    """A codec with converted weights ``flat`` (``params/...`` keys), at
+    their widths: the published file gives the defaults."""
+    from .. import convert
+
+    n_q, bins, dim = flat["params/quantizer/codebooks"].shape
+    model = EncodecModel(dimension=dim, n_filters=flat["params/encoder/conv_in/v"].shape[-1],
+                         n_q_total=n_q, bins=bins)
+    convert.jax_params_to_torch(flat, model)
     return Codec(model, device)

@@ -1,5 +1,5 @@
 """Weight carry-over between the JAX package's flax parameters and the port
-(both directions), seeded weights, and the serving cast to bf16.
+(both directions) and seeded weights.
 
 The port names its submodules after the flax modules, so a ``/``-joined flax
 path becomes a ``state_dict`` name by module path plus one leaf rename,
@@ -122,8 +122,16 @@ def _flax_leaf(owner, leaf: str, val: np.ndarray) -> tuple[str, np.ndarray]:
         return "kernel", np.moveaxis(val, (0, 1), (-1, -2))
     if isinstance(owner, ConvTranspose) and leaf == "weight":
         return "kernel", val[..., ::-1].transpose(2, 0, 1)
-    if isinstance(owner, (StreamableConv1d, StreamableConvTranspose1d, ResidualLSTM)):
-        raise NotImplementedError("codec parameters are not exported to flax yet")
+    if isinstance(owner, StreamableConvTranspose1d):
+        if leaf == "v":
+            return "v", val.transpose(2, 0, 1)
+        if leaf == "g":
+            return "g", val.reshape(1, -1, 1)
+    if isinstance(owner, StreamableConv1d):
+        if leaf == "v":
+            return "v", val.transpose(2, 1, 0)
+        if leaf == "g":
+            return "g", val.reshape(1, 1, -1)
     return leaf, val
 
 
@@ -132,26 +140,38 @@ def torch_params_to_jax(module: torch.nn.Module,
     """The inverse of ``jax_params_to_torch``: ``{"a/b/kernel": fp32 array}``
     with the ``/``-joined flax paths (no leading ``params/``).  ``tensors``
     maps parameter names to other values to convert in the parameters'
-    place (gradients, an EMA copy); by default the parameters themselves."""
+    place (gradients, an EMA copy); by default the parameters themselves.
+    A codec LSTM's two biases per layer are summed into flax's one: its
+    weights, not its gradients (each bias takes the whole gradient)."""
     out = {}
     for name, p in module.named_parameters():
         val = p if tensors is None else tensors[name]
         key, arr = _flax_item(module, name, val.detach().float().cpu().numpy())
-        out[key] = np.ascontiguousarray(arr)
+        # a ResidualLSTM's two biases per layer sum to the flax layer's one
+        out[key] = np.ascontiguousarray(arr if key not in out else out[key] + arr)
     return out
 
 
 def _flax_item(module: torch.nn.Module, name: str, val) -> tuple[str, np.ndarray]:
     prefix, _, leaf = name.rpartition(".")
     owner = module.get_submodule(prefix) if prefix else module
-    flax_leaf, arr = _flax_leaf(owner, leaf, val)
+    if isinstance(owner, torch.nn.LSTM):
+        # a ResidualLSTM's stack: its flax leaves sit on the ResidualLSTM
+        prefix = prefix.rpartition(".")[0]
+        kind, n = leaf.rsplit("_l", 1)
+        if kind.startswith("weight"):
+            flax_leaf, arr = f"w_{kind[7:]}_l{n}", val.T
+        else:
+            flax_leaf, arr = f"b_l{n}", val
+    else:
+        flax_leaf, arr = _flax_leaf(owner, leaf, val)
     return ("/".join([*prefix.split("."), flax_leaf]) if prefix else flax_leaf), arr
 
 
 def tree_path(module: torch.nn.Module, name: str) -> str:
     """The ``/``-joined flax path (no leading ``params/``) of ``module``'s
     parameter ``name``: ``base.text_emb.weight`` → ``base/text_emb/embedding``."""
-    return _flax_item(module, name, np.empty(0))[0]
+    return _flax_item(module, name, np.empty((0,) * module.get_parameter(name).ndim))[0]
 
 
 def init_seeded(module: torch.nn.Module, seed: int) -> None:
@@ -178,13 +198,3 @@ def init_seeded(module: torch.nn.Module, seed: int) -> None:
                 val = torch.randn(p.shape, generator=g)
             p.copy_(val.to(p.dtype))
 
-
-def cast_params_bf16(module: torch.nn.Module) -> torch.nn.Module:
-    """Serving precision, as the JAX package's ``cast_params_bf16``: every
-    parameter of two or more dimensions becomes bf16, except under a norm;
-    biases, norms and other 1-D parameters stay fp32."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if p.ndim >= 2 and "norm" not in name.lower():
-                p.data = p.data.to(torch.bfloat16)
-    return module

@@ -89,6 +89,8 @@ def masked_attention(q, k, v, kv_mask):
     On a CUDA tensor with grad enabled and an input that requires grad it
     raises rather than detach."""
     check_inputs(q, k, v, kv_mask)
+    if masked_attention.shapes is not None:
+        masked_attention.shapes[(*q.shape, k.shape[1])] += 1
     if q.device.type == "cpu":
         masked_attention.plain_calls += 1
         return masked_attention_plain(q, k, v, kv_mask)
@@ -118,3 +120,7 @@ masked_attention.launches = 0
 #: plain-version calls made for CPU tensors (lets a CPU rehearsal count the
 #: attention calls of a run; never incremented on the card)
 masked_attention.plain_calls = 0
+#: a ``collections.Counter`` to record each call's (B, Tq, H, Dh, Tk) in,
+#: kernel or plain, or None (a smoke run sets it around a path to check the
+#: kernel at the shapes the path gave it)
+masked_attention.shapes = None

@@ -134,6 +134,8 @@ def train_flash_attention(q, k, v, kv_mask, causal: bool = False):
     (no gradient).  Returns a new contiguous (B, Tq, H, Dh) tensor in q's
     dtype; its backward gives dq, dk, dv."""
     check_inputs(q, k, v, kv_mask)
+    if train_flash_attention.shapes is not None:
+        train_flash_attention.shapes[(*q.shape, k.shape[1], bool(causal))] += 1
     if q.device.type == "cpu":
         train_flash_attention.plain_calls += 1
         return train_flash_attention_plain(q, k, v, kv_mask, causal)
@@ -148,3 +150,6 @@ train_flash_attention.launches = 0
 train_flash_attention.backward_launches = 0
 #: plain-version calls made for CPU tensors (never incremented on the card)
 train_flash_attention.plain_calls = 0
+#: a ``collections.Counter`` to record each forward's (B, Tq, H, Dh, Tk,
+#: causal) in, kernel or plain, or None (as ``masked_attention.shapes``)
+train_flash_attention.shapes = None

@@ -29,6 +29,15 @@ step's EMA against the D3PM bundle (``zoo/diffusion``: the JAX package's
 codec) on the run's val split with both estimators of step 4, and writes
 ``report_zoo.json``.
 
+With ``--zoo-evals ZOO`` it makes the corpus and codes, then runs the four
+evaluation entry points (``scripts/``) on ``ZOO/diffusion``, ``ZOO/nar``
+and ``ZOO/ar`` (the committed ``zoo/``) with the arguments of the JAX
+repository's records (``benchmarks/gen_r4``: ``heldout_fullstack_mini_v3``
+ancestral and MaskGIT, ``heldout_fullstack_ar_mini_v2``,
+``transfer_eval_fullstack_mini_v2``, ``quality_gate_mini_v3``,
+``longform_seam_mini_v3``) at 4 seeds, and writes ``report_zoo_evals.json``
+with each metric's values, mean and range beside the record's number.
+
 With ``--ar`` it runs the AR chain instead, reusing the workdir's corpus,
 codes and NAR bundle when an earlier run left them (else making them as
 above):
@@ -363,7 +372,7 @@ def serve_ar(run: Run, zoo: Path, serve_steps: int, spec_steps: int) -> dict:
     """The val utterances through the AR first stage (bf16, the serving
     precision): time to wav at temperature 1.0, then greedy plain against
     greedy speculative with the quarter draft at each of ``SPEC_KS``."""
-    from .convert import cast_params_bf16
+    from .utils.precision import cast_params_bf16
     from .models.ar import ar_generate, ar_generate_speculative
     from .serve import Synthesizer, check_draft, load_model
     from .smoke_ar import first_divergence, spec_stats, top2_margin
@@ -473,6 +482,132 @@ def run_ar(run: Run, device: str, tiny: bool) -> dict:
     return run.report
 
 
+#: the seeds of ``--zoo-evals`` (the long-form text's seeds are 11 + these,
+#: the JAX record's default being 11)
+EVAL_SEEDS = (0, 1, 2, 3)
+#: the JAX records each evaluation is compared with, and the numbers read
+ZOO_RECORDS = {
+    "heldout ancestral": ("heldout_fullstack_mini_v3.json", ("summary", "mean")),
+    "heldout maskgit": ("heldout_fullstack_mini_v3_maskgit.json", ("summary", "mean")),
+    "heldout ar": ("heldout_fullstack_ar_mini_v2.json", ("summary", "mean")),
+    "transfer": ("transfer_eval_fullstack_mini_v2.json", ("summary",)),
+    "quality_gate": ("quality_gate_mini_v3.json", ()),
+    "longform_seam": ("longform_seam_mini_v3.json", ()),
+}
+ZOO_METRICS = {
+    "heldout ancestral": ("level0_acc", "acc", "mcd", "mcd_vs_raw", "codec_floor_mcd"),
+    "heldout maskgit": ("level0_acc", "acc", "mcd", "mcd_vs_raw", "codec_floor_mcd"),
+    "heldout ar": ("level0_acc", "acc", "mcd", "len_ratio", "frames"),
+    "transfer": ("transfer_accuracy_2way", "mean_margin", "attribution_accuracy_full"),
+    "quality_gate": ("level0_token_accuracy", "tokens_compared"),
+    "longform_seam": ("n_segments", "total_frames", "one_shot.seam_flux_ratio_max",
+                      "hard_splice.seam_flux_ratio_max", "seam_free"),
+}
+
+
+def _pick(blob: dict, path: tuple, key: str):
+    for k in path:
+        blob = blob[k]
+    for k in key.split("."):
+        blob = blob[k]
+    return blob
+
+
+def zoo_evals(run: Run, zoo: Path, tiny: bool) -> dict:
+    """The four entry points in this process on ``zoo``'s bundles over the
+    workdir's corpus, at each of ``EVAL_SEEDS`` (one seed and 2 transfer
+    trials with ``tiny``): per metric the values, their mean and range, and
+    the JAX record's value where ``benchmarks/gen_r4`` is present.  The
+    gate runs at the record's ``--min-acc 0.05`` on the first val
+    utterance, prompted with the first train utterance of its speaker (the
+    JAX repository's gate recipe); its report is kept whether it passes."""
+    import contextlib
+    import io
+
+    from .config import Config
+    from .data.dataset import create_datasets
+    from .scripts import heldout_eval, longform_seam_eval, quality_gate, speaker_transfer_eval
+    from .smoke_codec import codec_weights
+
+    d3pm, nar, ar = (str(zoo / n) for n in ("diffusion", "nar", "ar"))
+    data = [f"data_dirs=[{run.data}]"]
+    d3pm_cfg, ar_cfg = ["yaml=config/gen4c/diffusion.yml", *data], ["yaml=config/gen4c/ar.yml", *data]
+    dev = ["--device", run.device]
+    # the records' response buckets (the tiny models' 48 and 24 with ``tiny``)
+    bucket, ar_bucket, transfer_bucket = ("48", "24", "48") if tiny else ("192", "192", "256")
+    train_ds, val_ds = create_datasets(Config.from_cli(d3pm_cfg))
+    vp = val_ds.paths[0]
+    prompt = next(p for p in train_ds.paths if train_ds.get_spkr(p) == val_ds.get_spkr(vp))
+
+    def stem(p):
+        return p.parent / p.name.split(".")[0]
+
+    text = Path(f"{stem(vp)}.normalized.txt").read_text().strip()
+    ref_wav = sorted((run.data / "spk00").glob("utt00*.wav"))[0]
+    out = run.work / "zoo_evals"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def gate(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                quality_gate.main(argv)
+            except SystemExit as e:  # below --min-acc: the report is kept
+                if e.code != 1:
+                    raise
+        return json.loads(buf.getvalue().splitlines()[0])
+
+    def written(main, argv):
+        """``main(argv)``, then the JSON it wrote to ``--out``."""
+        main(argv)
+        return json.loads(Path(argv[argv.index("--out") + 1]).read_text())
+
+    evals = {
+        "heldout ancestral": lambda seed, o: written(heldout_eval.main,
+            [d3pm, "--nar-bundle", nar, "--out", o, "--n", "8", "--resp-bucket", bucket,
+             "--seed", seed, *dev, *d3pm_cfg]),
+        "heldout maskgit": lambda seed, o: written(heldout_eval.main,
+            [d3pm, "--nar-bundle", nar, "--decode", "maskgit", "--out", o, "--n", "8",
+             "--resp-bucket", bucket, "--seed", seed, *dev, *d3pm_cfg]),
+        "heldout ar": lambda seed, o: written(heldout_eval.main,
+            [ar, "--nar-bundle", nar, "--out", o, "--n", "8", "--resp-bucket", ar_bucket,
+             "--seed", seed, *dev, *ar_cfg]),
+        "transfer": lambda seed, o: written(speaker_transfer_eval.main,
+            [d3pm, "--nar-bundle", nar, "--out", o, "--trials", "2" if tiny else "32",
+             "--resp-bucket", transfer_bucket, "--seed", seed, *dev, *d3pm_cfg]),
+        "quality_gate": lambda seed, o: gate(
+            [d3pm, f"{stem(vp)}.wav", text, "--prompt-wav", f"{stem(prompt)}.wav",
+             "--min-acc", "0.05", "--seed", seed, *dev]),
+        "longform_seam": lambda seed, o: written(longform_seam_eval.main,
+            [d3pm, nar, str(ref_wav), "--out", o, "--seed", str(11 + int(seed)), *dev]),
+    }
+    seeds = EVAL_SEEDS[:1] if tiny else EVAL_SEEDS
+    records = REPO / "benchmarks" / "gen_r4"
+    report = {"zoo": str(zoo), "seeds": list(seeds), "gate_input": [str(vp), str(prompt), text],
+              "seam_reference": str(ref_wav)}
+    with codec_weights(run.codec) if run.codec else contextlib.nullcontext():
+        for name, fn in evals.items():
+            t0 = time.perf_counter()
+            blobs = [fn(str(seed), str(out / f"{name.replace(' ', '_')}_{seed}.json"))
+                     for seed in seeds]
+            record_file, path = ZOO_RECORDS[name]
+            record = (json.loads((records / record_file).read_text())
+                      if (records / record_file).exists() else None)
+            entry = {"seconds": time.perf_counter() - t0, "record": record_file}
+            for key in ZOO_METRICS[name]:
+                vals = [float(_pick(b, path, key)) for b in blobs]
+                entry[key] = {"values": vals, "mean": float(np.mean(vals)), "min": min(vals),
+                              "max": max(vals),
+                              "record": None if record is None else _pick(record, path, key)}
+            report[name] = entry
+            run.log(f"zoo eval {name}: " + ", ".join(
+                f"{k} {v['mean']:.4f} [{v['min']:.4f}, {v['max']:.4f}] (record {v['record']})"
+                for k, v in entry.items() if isinstance(v, dict)))
+            run.report["zoo_evals"] = report
+            run.save("report_zoo_evals.json")
+    return report
+
+
 def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("workdir", type=Path)
@@ -485,6 +620,10 @@ def main(argv: list[str] | None = None) -> dict:
                         help="train the D3PM recipe only, then hold its last step's EMA "
                              "against this D3PM bundle (zoo/diffusion) on the same val split "
                              "with the 16-seed and all-t estimators; writes report_zoo.json")
+    parser.add_argument("--zoo-evals", type=Path, default=None, metavar="ZOO",
+                        help="make the corpus and codes, then run the four evaluation entry "
+                             "points on ZOO/diffusion, ZOO/nar and ZOO/ar with the JAX records' "
+                             "arguments at 4 seeds; writes report_zoo_evals.json")
     parser.add_argument("--ar", action="store_true",
                         help="the AR chain (train ar and ar-quarter, export, serve, "
                              "speculative decoding), reusing the workdir's corpus, codes and "
@@ -505,6 +644,11 @@ def main(argv: list[str] | None = None) -> dict:
         run.report["zoo_estimator"] = zoo_estimate(run, args.zoo_estimator, last)
         run.save("report_zoo.json")
         print(json.dumps(run.report["zoo_estimator"], default=str))
+        return run.report
+    if args.zoo_evals is not None:
+        prepare_data(run, args.device, args.tiny)
+        report = zoo_evals(run, args.zoo_evals, args.tiny)
+        print(json.dumps(report, default=str))
         return run.report
     if args.ar:
         report = run_ar(run, args.device, args.tiny)

@@ -105,7 +105,7 @@ class Synthesizer:
         first stage decodes up to ``max_ar_steps`` tokens, and a ``draft``
         AR turns on speculative decoding with ``spec_k`` proposals per
         round."""
-        from .convert import cast_params_bf16
+        from .utils.precision import cast_params_bf16
 
         self.device = resolve_device(device)
         self.is_ar = isinstance(first, AR)

@@ -238,7 +238,8 @@ def speculative_checks(synth, bundle, prepared, seed: int, max_steps: int = MAX_
     """fp32 (TF32 off): the target as its own draft at ``max_steps`` and a
     seeded ``ar-quarter`` draft at ``quarter_steps``, asserted equal to
     plain greedy; bf16 (the serving weights): the same, printed."""
-    from .convert import cast_params_bf16, init_seeded
+    from .convert import init_seeded
+    from .utils.precision import cast_params_bf16
     from .models import get_model
     from .serve import load_model
 

@@ -55,6 +55,11 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "zero1=True is not ported yet (ROADMAP queue 1, \"parallel/mesh.py, "
             "parallel/infer.py\"); the port trains on one card without it")
+    check_mesh(cfg)
+
+
+def check_mesh(cfg: Config) -> None:
+    """Raise on a mesh larger than 1×1 (not ported yet)."""
     if cfg.mesh_dp not in (-1, 1) or cfg.mesh_tp != 1:
         raise NotImplementedError(
             f"mesh_dp={cfg.mesh_dp} mesh_tp={cfg.mesh_tp} is not ported yet (ROADMAP queue 1, "

@@ -1,7 +1,10 @@
 """The entry points' device rule (the card unless the caller asks for the
-CPU), and which process leads (profiles, writes diagnostics)."""
+CPU), and which process leads (profiles, writes diagnostics and
+artifacts)."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -19,3 +22,9 @@ def is_global_leader() -> bool:
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def is_local_leader() -> bool:
+    """Local rank 0 (``$LOCAL_RANK``, as the JAX package reads it), or the
+    one process there is."""
+    return int(os.environ.get("LOCAL_RANK", 0)) == 0
