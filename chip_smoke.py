@@ -46,7 +46,15 @@ reloaded bit for bit), and the four evaluation entry points
 (``heldout_eval`` ancestral, MaskGIT and AR, ``speaker_transfer_eval``,
 ``quality_gate``, ``longform_seam_eval``) on the exported D3PM, NAR and AR,
 each writing the JAX records' JSON keys with every kernel launch counted
-and both kernels held to their plain versions at the shapes they gave.
+and both kernels held to their plain versions at the shapes they gave; then
+parallel (``smoke_parallel.py``): the D3PM's ZeRO-1 steps and a MaskGIT
+batch through ``make_sharded_generate`` in a world of one, with no process
+group and in an NCCL one (bit-identical), then two ranks sharing the card
+over gloo: dp=2 D3PM steps (and with ZeRO-1), tp=2 NAR steps,
+``Synthesizer(mesh_tp=2)`` on the main path and dp=2 MaskGIT, each held to
+one process's run of the same work, with each rank's kernel launches
+counted and both kernels held to their plain versions at every per-rank
+shape.
 Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
 wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
@@ -91,6 +99,7 @@ def main() -> int:
             smoke_gaussian,
             smoke_gen4b,
             smoke_codec,
+            smoke_parallel,
             smoke_serve,
             smoke_train,
         )
@@ -284,6 +293,7 @@ def main() -> int:
         ce = smoke_codec.phase_codec_evals(
             device, {"d3pm": d3pm_bundle, "nar": nar_bundle, "ar": ar_bundle}, seed=args.seed)
     tr = ce["train"]
+    ce_kernel1 = ce["kernels"]["kernel1"]
     smoke.log(f"codec train: step p50 {tr['p50_step_s'] * 1e3:.1f} ms, p90 "
               f"{tr['p90_step_s'] * 1e3:.1f} ms, peak allocated (the run's own) "
               f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
@@ -293,9 +303,17 @@ def main() -> int:
     paths.update(ce["kernels"]["paths1"])
     train_results += ce["kernels"]["kernel2"]
     eval_runs += ce["kernels"]["runs2"]
+    del ce
+    torch.cuda.empty_cache()
+    # dp x tp: a world of one over NCCL, then two ranks sharing the card
+    with smoke.phase("parallel"):
+        par = smoke_parallel.phase_parallel(device, seed=args.seed, smi=info["smi"])
+    paths.update(par["paths1"])
+    train_results += par["kernel2"]
+    eval_runs += par["runs2"]
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
                                     paths, checked=[*ar_nar_results, *d3pm_decode_results,
-                                                    *g_serve, *ce["kernels"]["kernel1"]]),
+                                                    *g_serve, *ce_kernel1, *par["kernel1"]]),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")

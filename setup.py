@@ -22,8 +22,8 @@ def _write_version():
             '"""Generated by setup.py."""\n\n'
             f'__version__ = "0.1.0+{stamp}"\n__commit__ = "{commit}"\n'
         )
-        (Path(__file__).parent / "tts_with_diffusion_model_tpu" / "version.py"
-         ).write_text(content)
+        for package in ("tts_with_diffusion_model_tpu", "tts_with_diffusion_model_tpu_torch"):
+            (Path(__file__).parent / package / "version.py").write_text(content)
     except Exception:
         pass
 

@@ -138,7 +138,8 @@ def test_port_and_chip_smoke_import_without_jax():
                 "utils.artifacts", "codec.losses", "codec.train", "codec.calibrate",
                 "codec.convert", "compat.reference", "compat.import_reference",
                 "scripts.heldout_eval", "scripts.speaker_transfer_eval", "scripts.quality_gate",
-                "scripts.longform_seam_eval", "smoke_codec"):
+                "scripts.longform_seam_eval", "smoke_codec", "parallel.mesh", "parallel.comm",
+                "parallel.infer", "utils.distributed", "version", "smoke_parallel"):
         assert f"tts_with_diffusion_model_tpu_torch.{mod}" in names, mod
 
 

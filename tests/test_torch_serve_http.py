@@ -336,10 +336,11 @@ def tiny_bundles(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("case,match", [("mesh_tp", "item 14"), ("gaussian", "D3PM samplers")])
+@pytest.mark.parametrize("case,match", [("mesh_tp", "torchrun"), ("gaussian", "D3PM samplers")])
 def test_serve_cli_refusals(tiny_bundles, capsys, case, match):
-    """``--mesh-tp 2`` is not ported; a Gaussian bundle is served, but the
-    D3PM's ``--stride`` is refused for it."""
+    """``--mesh-tp 2`` outside a process group of 2 ranks is refused with
+    the torchrun command that gives one; a Gaussian bundle is served, but
+    the D3PM's ``--stride`` is refused for it."""
     argv = ["--device", "cpu", "--nar-ckpt", str(tiny_bundles / "nar"), "--ar-ckpt",
             str(tiny_bundles / ("gaussian" if case == "gaussian" else "diffusion"))]
     argv += ["--mesh-tp", "2"] if case == "mesh_tp" else ["--stride", "3"]

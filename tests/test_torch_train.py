@@ -346,8 +346,9 @@ def test_train_cli_on_cpu_through_stdin_then_resume(tmp_path, corpus):
                                   "mesh_dp=4", "cache_dataloader=true",
                                   "gradient_checkpointing_policy=dots"])
 def test_unported_knobs_are_rejected_by_name(tmp_path, corpus, knob, small_codec, monkeypatch):
-    """``zero1`` and a mesh are still refused by name; the other knobs are
-    ported and a two-step run with each does what JAX's does: hyp / ref
+    """A mesh larger than the world is refused with JAX's assertion text;
+    ``zero1`` on a world of one trains (dp 1: nothing to split); the other
+    knobs are ported and a two-step run with each does what JAX's does: hyp / ref
     wavs and ``metrics.json`` (the keys JAX's
     ``test_train_main_eval_decode_audio`` asserts), a parsable trace under
     ``profile/step_2``, the dataset cache file, the ``dots`` policy."""
@@ -358,13 +359,15 @@ def test_unported_knobs_are_rejected_by_name(tmp_path, corpus, knob, small_codec
     cfg = Config.from_cli([f"yaml={_write_yaml(tmp_path, corpus)}", "device=cpu", knob,
                            "max_iter=2", "eval_every=2"])
     name = knob.split("=")[0]
-    if name in ("zero1", "mesh_dp"):
-        with pytest.raises(NotImplementedError, match=name):
+    if name == "mesh_dp":
+        with pytest.raises(AssertionError, match="mesh dp=4 x tp=1 needs 4 devices"):
             port_train.main(cfg)
         return
     engines = port_train.main(cfg)
     assert engines.global_step == 2
-    if name == "eval_decode_audio":
+    if name == "zero1":
+        assert engines["model"].zero1_dims is None and engines["model"].mesh.size == 1
+    elif name == "eval_decode_audio":
         wavs = list(Path(cfg.log_dir).rglob("*.wav"))
         assert any("ref" in str(w) for w in wavs) and any("hyp" in str(w) for w in wavs)
         for split in ("subtrain", "val"):

@@ -10,8 +10,10 @@ objective of ``codec/losses.py`` (multi-scale STFT + L1 + VQ terms), on the
 training runtime the TTS models use (``train/engine.Engine``: Adam at the
 config's warmup-decay schedule, global-norm clipping).  Checkpoints are
 ``ckpt_dir/codec/step_<8 digits>.pt``, written every ``save_ckpt_every or
-eval_every`` steps and at the end; a run resumes from the latest.  A mesh
-larger than 1×1 is refused (not ported yet).
+eval_every`` steps and at the end; a run resumes from the latest.  Under
+``torchrun`` it trains on the config's mesh as the TTS models do: the codec
+has no tp-tagged dimension, so tp replicates it, and dp splits the batch
+(each rank draws ``batch_size // dp`` segments from its own stream).
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ from ..audio.wavio import convert_audio, read_wav
 from ..config import Config
 from ..convert import init_seeded
 from ..train import trainer
+from ..data.dataset import _process_offset, local_batch_size
 from ..train.engine import Engine
-from ..train.train import check_mesh
-from ..utils.device import resolve_device
+from ..train.train import setup_mesh
 from ..utils.logging import setup_logging
 from .encodec import HOP, SAMPLE_RATE, EncodecModel
 from .losses import codec_reconstruction_loss
@@ -72,10 +74,17 @@ class WavSegmentLoader:
 
 def make_codec_loss_fn(num_quantizers: int = 8):
     """The engine's loss feeder: ``(module, batch, generator) → (loss,
-    stats)``; the objective draws no noise."""
+    stats)``; the objective draws no noise.  Its terms are means over equal
+    rows, so in a dp step (``rows``) each rank's share is its mean times its
+    rows' fraction of the global batch."""
 
-    def loss_fn(module, batch, generator):
-        return codec_reconstruction_loss(module, batch["wav"], num_quantizers=num_quantizers)
+    def loss_fn(module, batch, generator, rows=None):
+        loss, stats = codec_reconstruction_loss(module, batch["wav"],
+                                                num_quantizers=num_quantizers)
+        if rows is None:
+            return loss, stats
+        share = rows.n / rows.total
+        return loss * share, {k: v * share for k, v in stats.items()}
 
     return loss_fn
 
@@ -86,8 +95,7 @@ def train_codec(cfg: Config, segment_frames: int = 150, num_quantizers: int = 8,
     ``logger`` gets ``data=`` each step's stats (losses, ``lr``,
     ``grad_norm``, ``elapsed_time``: the host clock around the synchronised
     step, and ``global_step``)."""
-    check_mesh(cfg)
-    device = resolve_device(cfg.device)
+    device, mesh = setup_mesh(cfg)
     model = EncodecModel()
     init_seeded(model, cfg.seed)
     model.to(device).train()
@@ -95,10 +103,11 @@ def train_codec(cfg: Config, segment_frames: int = 150, num_quantizers: int = 8,
     opt_cfg = dict(cfg.optimizer_cfg)
     opt_cfg["gradient_clipping"] = cfg.gradient_clipping
     engine = Engine(name="codec", module=model, loss_fn=make_codec_loss_fn(num_quantizers),
-                    opt_cfg=opt_cfg, ckpt_root=cfg.ckpt_dir)
+                    opt_cfg=opt_cfg, ckpt_root=cfg.ckpt_dir, mesh=mesh)
     engine.load_checkpoint()
 
-    loader = WavSegmentLoader(cfg.data_dirs, cfg.batch_size, segment_frames, cfg.seed)
+    loader = WavSegmentLoader(cfg.data_dirs, local_batch_size(cfg.batch_size, mesh),
+                              segment_frames, cfg.seed + _process_offset(mesh))
     save_every = cfg.save_ckpt_every or cfg.eval_every
     for batch in loader:
         if engine.global_step >= cfg.max_iter:

@@ -4,9 +4,8 @@
 Every field and default of the JAX package's ``Config``, so its YAML
 configs load unchanged, plus ``make_spkr_getter`` and ``optimizer_cfg``.
 In the port ``use_fp16`` selects bf16 compute with fp32 parameters, and
-``device`` (from ``ConfigBase``) defaults to ``"cuda"``.  Knobs whose code
-is not ported yet are rejected by name where they are read
-(``train/train.py``), never silently ignored.
+``device`` (from ``ConfigBase``) defaults to ``"cuda"``; under torchrun it
+is each rank's card.
 """
 
 from __future__ import annotations
@@ -119,7 +118,8 @@ class Config(ConfigBase):
     max_prom_len: int = 896
     max_resp_len: int = 512
 
-    # mesh shape: data-parallel × tensor-parallel axes; -1 = all remaining
+    # mesh shape: data-parallel × tensor-parallel axes over the ranks of a
+    # torchrun group (parallel/mesh.py); -1 = all remaining
     mesh_dp: int = -1
     mesh_tp: int = 1
 
@@ -135,8 +135,8 @@ class Config(ConfigBase):
     # evaluate the EMA weights instead of the raw ones (requires ema_decay)
     eval_use_ema: bool = False
 
-    # ZeRO-1 optimizer-state sharding over a dp mesh: not ported yet
-    # (rejected by train.py; the port trains on one card)
+    # ZeRO-1: each dp rank keeps its block of Adam's moments
+    # (parallel/mesh.zero1_shardings)
     zero1: bool = False
 
     diffusion_train_mode: str = "sampled"  # "sampled" | "all_t" (ref parity)

@@ -35,6 +35,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.distributed import all_reduce_max_int, broadcast_object, global_rank
 from .sampler import Sampler
 
 _logger = logging.getLogger(__name__)
@@ -381,8 +382,9 @@ class LengthBucketedLoader:
     """
 
     def __init__(self, base, bucket: BucketSpec, resp_buckets,
-                 prom_buckets=None, window: int = 8, seed: int = 0):
+                 prom_buckets=None, window: int = 8, seed: int = 0, dp=None):
         self.base = base
+        self.dp = dp  # the loading ranks' mesh axis (None: every rank loads)
         self.bucket = bucket
         self.resp_buckets = sorted(
             {int(b) for b in resp_buckets if int(b) <= bucket.resp_len}
@@ -408,6 +410,13 @@ class LengthBucketedLoader:
         close = getattr(self.base, "close", None)
         if close is not None:
             close()
+
+    def _agree(self, need: int) -> int:
+        """The max of ``need`` over the ranks that load: every rank draws
+        different rows, and a dp step's ranks must agree on the shape."""
+        if self.dp is None:
+            return all_reduce_max_int(need)
+        return need if self.dp.size == 1 else all_reduce_max_int(need, self.dp.group)
 
     @staticmethod
     def _pick(buckets: list[int], need: int) -> int:
@@ -438,18 +447,43 @@ class LengthBucketedLoader:
                     k: (v[g] if isinstance(v, np.ndarray) else [v[i] for i in g])
                     for k, v in merged.items()
                 }
-                # one process: the covering bucket needs no agreement
-                # between hosts (the JAX package takes a max over them)
-                r_need = int(out["resp_mask"].sum(axis=1).max())
+                r_need = self._agree(int(out["resp_mask"].sum(axis=1).max()))
                 R = self._pick(self.resp_buckets, r_need)
                 for k in ("resps", "resp", "resp_mask"):
                     out[k] = out[k][:, :R]
                 if self.prom_buckets:
-                    p_need = int(out["prom_mask"].sum(axis=1).max())
+                    p_need = self._agree(int(out["prom_mask"].sum(axis=1).max()))
                     P = self._pick(self.prom_buckets, p_need)
                     out["proms"] = out["proms"][:, :P]
                     out["prom_mask"] = out["prom_mask"][:, :P]
                 yield out
+
+
+class TensorParallelRowLoader:
+    """One stream of training batches for a tp row, whose ranks compute one
+    batch together: the row's first rank iterates ``base`` and broadcasts
+    each batch over the row, the others (``base`` None) receive it.  Loading
+    on every rank of the row would not do, even from one seed: the loaders
+    fill batches on several threads and hand them out in the order those
+    finish."""
+
+    def __init__(self, base, dataset, kind: str, mesh):
+        self.base, self.dataset, self.kind = base, dataset, kind
+        self.group, self.src = mesh.tp.group, mesh.rank - mesh.tp.rank
+
+    def close(self):
+        close = getattr(self.base, "close", None)
+        if close is not None:
+            close()
+
+    def __iter__(self):
+        it = iter(self.base) if self.base is not None else None
+        while True:
+            batch = broadcast_object(next(it, None) if it is not None else None, self.src,
+                                     self.group)
+            if batch is None:
+                return
+            yield batch
 
 
 def _dataset_cache_file(cfg) -> Path:
@@ -466,7 +500,7 @@ def _dataset_cache_file(cfg) -> Path:
 
 
 def _datasets(cfg, train_paths, val_paths, phone_symmap=None, spkr_symmap=None,
-              skip_validation=False):
+              skip_validation=False, mesh=None):
     train_dataset = VALLEDataset(
         train_paths,
         cfg.get_spkr,
@@ -477,7 +511,7 @@ def _datasets(cfg, train_paths, val_paths, phone_symmap=None, spkr_symmap=None,
         training=True,
         p_additional_prompt=cfg.p_additional_prompt,
         max_prompts=cfg.max_prompts,
-        seed=cfg.seed + _process_offset(),
+        seed=cfg.seed + _process_offset(mesh),
         skip_validation=skip_validation,
     )
     val_dataset = VALLEDataset(
@@ -497,7 +531,7 @@ def _datasets(cfg, train_paths, val_paths, phone_symmap=None, spkr_symmap=None,
     return train_dataset, val_dataset
 
 
-def create_datasets(cfg):
+def create_datasets(cfg, mesh=None):
     """Train and val datasets from ``cfg.data_dirs`` (≡ ``data.py:244-263``).
     With ``cfg.cache_dataloader`` the discovery, phone validation and
     symmaps are written to ``_dataset_cache_file(cfg)`` (JSON, as the JAX
@@ -510,10 +544,10 @@ def create_datasets(cfg):
         _logger.info(f"Dataset construction restored from {cache_file}")
         return _datasets(cfg, [Path(p) for p in blob["train_paths"]],
                          [Path(p) for p in blob["val_paths"]], blob["phone_symmap"],
-                         blob["spkr_symmap"], skip_validation=True)
+                         blob["spkr_symmap"], skip_validation=True, mesh=mesh)
 
     train_dataset, val_dataset = _datasets(cfg, *load_train_val_paths(cfg.data_dirs,
-                                                                      cfg.get_spkr))
+                                                                      cfg.get_spkr), mesh=mesh)
     if cache_file is not None:
         cache_file.parent.mkdir(parents=True, exist_ok=True)
         cache_file.write_text(json.dumps(dict(
@@ -526,47 +560,67 @@ def create_datasets(cfg):
     return train_dataset, val_dataset
 
 
-def _process_offset() -> int:
-    """This process's rank (0 on one card): offsets the training draw seed."""
-    import torch.distributed as dist
+def _process_offset(mesh=None) -> int:
+    """Offsets the training draw seed: this rank's dp coordinate on a mesh
+    (a tp row loads one stream), else its global rank (0 in a world of
+    one)."""
+    return mesh.dp.rank if mesh is not None else global_rank()
 
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+def local_batch_size(batch_size: int, mesh=None) -> int:
+    """A rank's rows of the global ``batch_size`` on the mesh's dp axis."""
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} is not divisible by the dp mesh axis ({dp}); "
+                         f"pick a batch_size that is a multiple of dp")
+    return batch_size // dp
 
 
-def create_train_val_dataloader(cfg, bucket: BucketSpec | None = None):
-    """≡ ``data.py:266-285``: returns (train_dl, subtrain_dl, val_dl)."""
+def create_train_val_dataloader(cfg, bucket: BucketSpec | None = None, mesh=None):
+    """≡ ``data.py:266-285``: returns (train_dl, subtrain_dl, val_dl).  On a
+    mesh ``cfg.batch_size`` is the global batch: the first rank of each tp
+    row loads ``batch_size // dp`` rows from a stream seeded with its dp
+    coordinate and broadcasts them over the row (``TensorParallelRowLoader``);
+    the eval loaders are whole on every rank."""
     import copy
 
     bucket = bucket or BucketSpec(cfg.max_text_len, cfg.max_prom_len, cfg.max_resp_len)
-    train_dataset, val_dataset = create_datasets(cfg)
+    train_dataset, val_dataset = create_datasets(cfg, mesh)
+    rows = local_batch_size(cfg.batch_size, mesh)
+    tp_row = mesh is not None and mesh.tp.size > 1
+    loads = not tp_row or mesh.tp.rank == 0
 
     train_dl = None
-    if cfg.use_native_loader:
+    if loads and cfg.use_native_loader:
         # the JAX package's two reasons to take the Python loader: a dataset
         # without .qnt.npy files, and no g++
         from .native_loader import NativeDataLoader, NoCompiler
 
         try:
-            train_dl = NativeDataLoader(train_dataset, cfg.batch_size, bucket,
+            train_dl = NativeDataLoader(train_dataset, rows, bucket,
                                         n_workers=max(1, min(cfg.nj, 4)),
-                                        seed=cfg.seed + _process_offset() * 7919)
+                                        seed=cfg.seed + _process_offset(mesh) * 7919)
         except (FileNotFoundError, NoCompiler) as e:
             _logger.info(f"Native loader unavailable ({e}); using the Python loader")
-    if train_dl is None:
-        train_dl = DataLoader(train_dataset, cfg.batch_size, bucket, training=True, nj=cfg.nj)
-    _logger.info(f"Training batches from the {train_dl.kind} loader")
+    if loads and train_dl is None:
+        train_dl = DataLoader(train_dataset, rows, bucket, training=True, nj=cfg.nj)
     resp_buckets = getattr(cfg, "resp_len_buckets", None)
-    if resp_buckets:
+    if loads and resp_buckets:
         train_dl = LengthBucketedLoader(
             train_dl, bucket, resp_buckets,
             prom_buckets=getattr(cfg, "prom_len_buckets", None),
             window=getattr(cfg, "bucket_window_batches", 8),
-            seed=cfg.seed,
+            seed=cfg.seed, dp=None if mesh is None else mesh.dp,
         )
         _logger.info(
             "Length-bucketed batching: resp %s prom %s window %s",
             train_dl.resp_buckets, train_dl.prom_buckets, train_dl.window,
         )
+    if tp_row:
+        kind = broadcast_object(train_dl.kind if loads else None, mesh.rank - mesh.tp.rank,
+                                mesh.tp.group)
+        train_dl = TensorParallelRowLoader(train_dl, train_dataset, kind, mesh)
+    _logger.info(f"Training batches from the {train_dl.kind} loader")
     val_dl = DataLoader(val_dataset, cfg.eval_batch_size, bucket, training=False)
 
     _logger.info(str(train_dataset.phone_symmap))

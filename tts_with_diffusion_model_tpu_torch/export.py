@@ -5,7 +5,10 @@
         [--ema] [--dtype f32|f16] [restore_step=<n>] [device=cpu]
 
 Loads the run's latest checkpoint (or ``restore_step``) through the train
-CLI's ``load_engines`` and writes the bundle that both packages read:
+CLI's ``load_engines`` (checkpoints hold full tensors, so a run saved under
+any mesh exports; under torchrun the ranks gather the config's mesh's
+blocks and the global leader writes) and writes the bundle that both
+packages read:
 
     <path>/params.npz       flax-path arrays (``params/dit_0/attn/k/kernel``)
     <path>/model.json       model family, step, weights and the run's
@@ -57,6 +60,7 @@ def main(argv: list[str] | None = None):
     from .config import Config
     from .data.dataset import create_datasets
     from .train.train import load_engines
+    from .utils import distributed
     from .utils.config_base import _is_cfg_argv
 
     # from_cli first: with sys.argv it strips the key=value items, so
@@ -73,13 +77,16 @@ def main(argv: list[str] | None = None):
     args = parser.parse_args(None if argv is None else [a for a in argv if not _is_cfg_argv(a)])
 
     engine = load_engines(cfg)["model"]
-    tensors = None
+    # full tensors whatever the mesh (a gather over tp on every rank)
+    tensors = engine.full_state_dict()
     if args.ema:
         tensors = engine.ema_state_dict()
         if tensors is None:
             raise SystemExit("--ema requires a run trained with ema_decay set "
                              "(the checkpoint carries no averaged weights)")
     flat = bundle_params(engine.module, tensors)
+    if not distributed.is_global_leader():
+        return args.path
     if args.dtype == "f16":
         flat = {k: v.astype(np.float16) if np.issubdtype(v.dtype, np.floating) else v
                 for k, v in flat.items()}

@@ -44,15 +44,16 @@ class AR(nn.Module):
     def stop_token(self) -> int:
         return self.n_tokens
 
-    def forward(self, text, text_mask, proms, prom_mask, resp, resp_mask, generator=None):
+    def forward(self, text, text_mask, proms, prom_mask, resp, resp_mask, generator=None,
+                rows=None):
         """Teacher-forced training forward.  ``resp``: (B, Tr) level-0
-        tokens.  A ``generator`` turns dropout on.  Returns (logits,
-        {"nll": loss})."""
+        tokens.  A ``generator`` turns dropout on; ``rows`` is a dp step's
+        (``parallel.comm.Rows``).  Returns (logits, {"nll": loss})."""
         logits = self.base(text, text_mask, proms, prom_mask, resp[..., None], resp_mask,
-                           generator=generator)
+                           generator=generator, rows=rows)
         targets = build_targets(text, text_mask, prom_mask, resp, resp_mask,
                                 resp_loss_only=False, shift=True, stop_token=self.stop_token)
-        return logits, {"nll": masked_cross_entropy(logits, targets)}
+        return logits, {"nll": masked_cross_entropy(logits, targets, rows)}
 
     def prefill(self, text, text_mask, proms, prom_mask, total_len: int):
         return self.base.prefill(text, text_mask, proms, prom_mask, total_len)

@@ -20,6 +20,20 @@ each block builds its masks from a fresh generator seeded with its seed.  A
 block recomputed under ``torch.utils.checkpoint`` therefore redraws the
 masks it drew the first time (checkpoint restores only the default
 generators' states).
+
+Tensor parallelism: each layer that splits declares it, as the flax
+modules tag their logical axes.  ``tp_plan(tp)`` names the dimension of
+each of its parameters tagged ``heads`` / ``mlp`` / ``vocab`` (none where tp
+does not divide it), and ``tp_shard(axis)`` (``parallel/mesh.shard_module``)
+switches it to its tensor-parallel forward: the attention's projections and
+the MLP's ``fc1`` become column-parallel (output features split), their
+out-projection and ``fc2`` row-parallel (input features split, the partial
+products summed over the tp row), a vocab head gathers its logits, and an
+``Embed`` / ``MultiEmbedding`` holds a block of the vocabulary, looks up the
+ids inside it and sums over the row.  A dropout mask is drawn for the
+global batch (``rows``: a dp step's ``parallel.comm.Rows``) and the full
+width and cut to the rank's rows and columns, so neither dp nor tp changes
+it.
 """
 
 from __future__ import annotations
@@ -35,21 +49,45 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import route
 from ..ops.attention import dense_attention
+from ..parallel.comm import copy_to, draw_global, gather_from, global_sum, reduce_from
+from ..parallel.mesh import Split
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense``: weight (out, in) (the flax kernel transposed)."""
+    """``flax.linen.Dense``: weight (out, in) (the flax kernel transposed).
+    ``vocab`` tags the output features ``vocab`` (a logits head: under tp
+    its rows split and its logits are gathered).  ``tp``: None, or (mode, tp
+    axis) with mode "col" (output features split), "row" (input features
+    split; the bias is added after the sum) or "gather" (a column-parallel
+    head whose outputs are gathered)."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=None,
+                 vocab: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(d_out, d_in))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
-        self.dtype = dtype
+        self.dtype, self.vocab = dtype, vocab
+        self.tp = None
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        if not self.vocab or self.weight.shape[0] % tp:
+            return {}
+        return {n: Split(0, "vocab") for n in ("weight", "bias") if getattr(self, n) is not None}
+
+    def tp_shard(self, axis):
+        self.tp = ("gather", axis)
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         b = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        mode, axis = self.tp
+        if mode == "row":
+            y = reduce_from(F.linear(x.to(dt), self.weight.to(dt)), axis)
+            return y if b is None else y + b
+        y = F.linear(copy_to(x, axis).to(dt), self.weight.to(dt), b)
+        return gather_from(y, axis) if mode == "gather" else y
 
 
 class LayerNorm(nn.Module):
@@ -66,15 +104,39 @@ class LayerNorm(nn.Module):
                             self.bias.float(), self.eps)
 
 
-class Embed(nn.Module):
-    """``flax.linen.Embed``: a table lookup in the table's dtype."""
+def _vocab_lookup(table, ids, axis, index=()):
+    """``table[*index, ids]`` when the table holds the tp axis's block of
+    the vocabulary (dimension ``len(index)``): each rank looks up the ids
+    inside its block, zero elsewhere, and the row sums (exact: one rank
+    contributes each value)."""
+    n = table.shape[len(index)]
+    local = ids - axis.rank * n
+    hit = (local >= 0) & (local < n)
+    out = table[(*index, local.clamp(0, n - 1))] * hit[..., None].to(table.dtype)
+    return reduce_from(out, axis)
 
-    def __init__(self, n: int, d: int):
+
+class Embed(nn.Module):
+    """``flax.linen.Embed``: a table lookup in the table's dtype.  ``vocab``
+    tags the table's rows ``vocab``; ``tp``: the axis they split over, or
+    None."""
+
+    def __init__(self, n: int, d: int, vocab: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(n, d))
+        self.vocab = vocab
+        self.tp = None
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        return {"weight": Split(0, "vocab")} if self.vocab and not self.weight.shape[0] % tp else {}
+
+    def tp_shard(self, axis):
+        self.tp = axis
 
     def forward(self, ids):
-        return self.weight[ids]
+        if self.tp is None:
+            return self.weight[ids]
+        return _vocab_lookup(self.weight, ids, self.tp)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -181,16 +243,27 @@ def sinusoidal_embedding(pos: torch.Tensor, d_model: int) -> torch.Tensor:
 
 class MultiEmbedding(nn.Module):
     """Sum of per-RVQ-level embeddings.  tokens (..., T, L) → (..., T, D);
-    ``level_mask`` (..., L) selects the levels that contribute."""
+    ``level_mask`` (..., L) selects the levels that contribute.  The tokens
+    are tagged ``vocab``; ``tp``: the axis they split over, or None."""
 
     def __init__(self, max_n_levels: int, n_tokens: int, token_dim: int):
         super().__init__()
         self.max_n_levels = max_n_levels
         self.weight = nn.Parameter(torch.zeros(max_n_levels, n_tokens, token_dim))
+        self.tp = None
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        return {} if self.weight.shape[1] % tp else {"weight": Split(1, "vocab")}
+
+    def tp_shard(self, axis):
+        self.tp = axis
 
     def forward(self, tokens, level_mask=None):
         lvl = torch.arange(self.max_n_levels, device=tokens.device)
-        emb = self.weight[lvl, tokens]  # (..., T, L, D)
+        if self.tp is None:
+            emb = self.weight[lvl, tokens]  # (..., T, L, D)
+        else:  # summed over tp before the levels: the same values as 1x1
+            emb = _vocab_lookup(self.weight, tokens, self.tp, (lvl,))
         if level_mask is not None:
             while level_mask.ndim < emb.ndim - 1:
                 level_mask = level_mask[..., None, :]
@@ -256,20 +329,33 @@ class Dropout:
     """Inverted dropout at rate ``p`` from one block's seed (flax
     ``nn.Dropout``: keep with probability 1 − p, scale kept values by
     1 / (1 − p)).  Each call draws the next mask from the block's own
-    generator, so the block's sites take masks in a fixed order."""
+    generator, so the block's sites take masks in a fixed order.  The mask
+    is drawn for the global batch (a dp step) and, for an activation whose
+    features split over ``tp`` (an axis), for the full width, and cut to
+    this rank's rows and features."""
 
-    def __init__(self, p: float, seed: int, device):
+    def __init__(self, p: float, seed: int, device, rows=None):
         self.keep = 1.0 - p
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
+        self.rows = rows
 
-    def __call__(self, x):
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+    def __call__(self, x, tp=None):
+        n = x.shape[-1]
+        width = n if tp is None else n * tp.size
+
+        def draw(rows):
+            return torch.rand((rows, *x.shape[1:-1], width), generator=self.generator,
+                              device=x.device)
+
+        u = draw_global(draw, x.shape[0], self.rows)
+        if tp is not None:
+            u = u[..., tp.rank * n:(tp.rank + 1) * n]
         return torch.where(u < self.keep, x / self.keep, torch.zeros((), dtype=x.dtype,
                                                                      device=x.device))
 
 
-def _no_dropout(x):
+def _no_dropout(x, tp=None):
     return x
 
 
@@ -285,6 +371,18 @@ class Attention(nn.Module):
         self.d_model, self.n_heads, self.causal = d_model, n_heads, causal
         self.to_qkv = Dense(d_model, 3 * d_model, bias=False, dtype=dtype)
         self.to_out = Dense(d_model, d_model, dtype=dtype)
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        """to_qkv (EMBED, HEADS) of width 3·d: each rank its heads of q, of
+        k and of v; to_out (HEADS, EMBED) row-parallel."""
+        if self.n_heads % tp:
+            return {}
+        return {"to_qkv.weight": Split(0, "heads", 3), "to_out.weight": Split(1, "heads")}
+
+    def tp_shard(self, axis):
+        self.n_heads //= axis.size
+        self.d_model //= axis.size
+        self.to_qkv.tp, self.to_out.tp = ("col", axis), ("row", axis)
 
     def _qkv(self, x):
         B, T, _ = x.shape
@@ -318,14 +416,31 @@ class Attention(nn.Module):
         return self.to_out(o.reshape(B, W, self.d_model))
 
 
-class FeedForward(nn.Module):
+class TensorParallelMlp:
+    """The tp split of an ``fc1`` → ``fc2`` MLP: the hidden width is tagged
+    ``mlp``, ``fc1`` column-parallel and ``fc2`` row-parallel."""
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        if self.fc1.weight.shape[0] % tp:
+            return {}
+        plan = {"fc1.weight": Split(0, "mlp"), "fc2.weight": Split(1, "mlp")}
+        if self.fc1.bias is not None:
+            plan["fc1.bias"] = Split(0, "mlp")
+        return plan
+
+    def tp_shard(self, axis):
+        self.fc1.tp, self.fc2.tp = ("col", axis), ("row", axis)
+
+
+class FeedForward(TensorParallelMlp, nn.Module):
     def __init__(self, d_model: int, dtype=None):
         super().__init__()
         self.fc1 = Dense(d_model, 4 * d_model, dtype=dtype)
         self.fc2 = Dense(4 * d_model, d_model, dtype=dtype)
 
     def forward(self, x, drop=_no_dropout):
-        return self.fc2(drop(gelu(self.fc1(x))))
+        tp = self.fc1.tp[1] if self.fc1.tp is not None else None
+        return self.fc2(drop(gelu(self.fc1(x)), tp))
 
 
 class PrenormBlock(nn.Module):
@@ -354,11 +469,12 @@ class PrenormBlock(nn.Module):
     def _norm(self, norm, x, level):
         return norm(x, level) if self.norm_type == "adaln" else norm(x)
 
-    def forward(self, x, mask, level, seed: int | None = None):
-        """``seed`` turns dropout on (None: deterministic)."""
+    def forward(self, x, mask, level, seed: int | None = None, rows=None):
+        """``seed`` turns dropout on (None: deterministic); ``rows``: a dp
+        step's rows, whose masks are cut from the global batch's."""
         drop = _no_dropout
         if seed is not None and self.p_dropout > 0:
-            drop = Dropout(self.p_dropout, seed, x.device)
+            drop = Dropout(self.p_dropout, seed, x.device, rows)
         m = mask[..., None].to(x.dtype)
         h = drop(self.attn(self._norm(self.norm_attn, x, level) * m, mask))
         x = (x + h) * m
@@ -411,14 +527,14 @@ class Base(nn.Module):
         self.p_dropout, self.remat = p_dropout, remat
         self.remat_context = resolve_remat_policy(remat_policy)
         self.n_resp_tokens = n_tokens + (1 if use_stop_token else 0)
-        self.text_emb = Embed(n_tokens, d_model)
+        self.text_emb = Embed(n_tokens, d_model, vocab=True)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_tokens, d_model)
         self.resps_emb = MultiEmbedding(n_resp_levels, self.n_resp_tokens, d_model)
         self.sep = nn.Parameter(torch.zeros(d_model))
         for i in range(n_layers):
             self.add_module(f"block_{i}", PrenormBlock(d_model, n_heads, p_dropout, causal,
                                                        norm_type, n_resp_levels, dtype=dtype))
-        self.classifier = Dense(d_model, self.n_resp_tokens, dtype=torch.float32)
+        self.classifier = Dense(d_model, self.n_resp_tokens, dtype=torch.float32, vocab=True)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
@@ -439,10 +555,11 @@ class Base(nn.Module):
         return x.to(self.dtype) * mask[..., None].to(self.dtype), mask
 
     def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask,
-                resp_level_mask=None, quant_levels=None, generator=None):
+                resp_level_mask=None, quant_levels=None, generator=None, rows=None):
         """Logits (B, T, n_resp_tokens) over the merged layout.  A
         ``generator`` turns dropout on (one seed per block is drawn from it);
-        without one the forward is deterministic."""
+        without one the forward is deterministic.  ``rows``: a dp step's
+        rows (``parallel.comm.Rows``), for the dropout masks."""
         B = text.shape[0]
         x, mask = self._embed_merged(text, text_mask, proms, prom_mask, resps, resp_mask,
                                      resp_level_mask)
@@ -453,9 +570,9 @@ class Base(nn.Module):
                                   device=generator.device).tolist()
         use_remat = self.remat and torch.is_grad_enabled()
         for block, seed in zip(self.blocks(), seeds):
-            x = (checkpoint(block, x, mask, level, seed, use_reentrant=False,
+            x = (checkpoint(block, x, mask, level, seed, rows, use_reentrant=False,
                              context_fn=self.remat_context)
-                 if use_remat else block(x, mask, level, seed))
+                 if use_remat else block(x, mask, level, seed, rows))
         logits = self.classifier(x.float())
         return logits * mask[..., None]
 
@@ -496,7 +613,7 @@ class Base(nn.Module):
         marked valid; the speculative caller re-masks rejected ones."""
         B, W = tokens.shape
         pos = pos0[:, None] + torch.arange(W, device=tokens.device)
-        emb = self.resps_emb.weight[0, tokens] + sinusoidal_embedding(pos, self.d_model)
+        emb = self.resps_emb(tokens[..., None]) + sinusoidal_embedding(pos, self.d_model)
         x = emb.to(self.dtype)
         index = cache.index
         cache.mask[:, index:index + W] = 1
@@ -566,14 +683,15 @@ def build_targets(text, text_mask, prom_mask, targ, resp_mask, *, resp_loss_only
     return torch.cat([t_text, ig, t_prom, sep2, t_resp], dim=1)
 
 
-def masked_cross_entropy(logits, targets):
+def masked_cross_entropy(logits, targets, rows=None):
     """Mean cross-entropy (fp32 log-softmax) over the slots whose target is
-    not ``IGNORE_INDEX``."""
+    not ``IGNORE_INDEX``; in a dp step (``rows``), this rank's share of the
+    global mean (its sum over the whole batch's count)."""
     valid = targets != IGNORE_INDEX
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, targets, 0)[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / global_sum(valid.sum(), rows).clamp(min=1)
 
 
 def sample_categorical(logits, temperature: float = 1.0, gumbel_noise=None):

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..diffusion.d3pm import D3PM
+from ..parallel.comm import draw_global, global_sum
 from .dit import DiTDenoiser
 
 
@@ -96,7 +97,7 @@ class DiffusionModel(torch.nn.Module):
 
     def loss(self, batch: dict, generator: torch.Generator | None, max_t: int | None = None,
              q_noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
-             conds: tuple | None = None):
+             conds: tuple | None = None, rows=None):
         """Masked x_0-prediction cross-entropy → (loss, {"nll": loss}).
 
         batch: text (B, Tt), text_mask, proms (B, Tp, 8), prom_mask, resp
@@ -106,7 +107,10 @@ class DiffusionModel(torch.nn.Module):
         ``generator`` unless ``q_noise`` injects it: (B, Tr, V) for
         "sampled", (T−1, B, Tr, V) for "all_t".  ``t`` injects the sampled
         timesteps and ``conds`` the towers' outputs (text_cond, spkr_cond),
-        so tests can feed both packages the same draws."""
+        so tests can feed both packages the same draws.  In a dp step
+        (``rows``: ``parallel.comm.Rows``) every draw is made for the global
+        batch and cut to this rank's rows, and the mean's denominator is the
+        global batch's."""
         c = self.config
         T = max_t or c.timesteps
         text, tm = batch["text"], batch["text_mask"]
@@ -117,12 +121,16 @@ class DiffusionModel(torch.nn.Module):
         text_cond, spkr_cond = conds if conds is not None else den.conds(text, tm, proms, pm)
 
         def ce_at_t(tt, noise):
+            if noise is None and generator is not None:
+                noise = draw_global(lambda n: torch.rand(
+                    (n, *resp.shape[1:], c.n_classes), generator=generator, device=dev,
+                    dtype=torch.float32), B, rows)
             x_t = self.d3pm.q_sample(resp, tt, uniform_noise=noise, generator=generator)
             x_t = (x_t * rm).long()
             logits = den.denoise(x_t, rm, tt, text_cond, tm, spkr_cond, pm)
             logp = torch.log_softmax(logits, dim=-1)
             nll = -logp.gather(-1, resp[..., None].long())[..., 0]
-            return (nll * rm).sum() / rm.sum().clamp_min(1.0)
+            return (nll * rm).sum() / global_sum(rm.sum(), rows).clamp_min(1.0)
 
         if c.train_mode == "all_t":
             total = 0.0
@@ -132,7 +140,8 @@ class DiffusionModel(torch.nn.Module):
             loss = total / (T - 1)
         elif c.train_mode == "sampled":
             if t is None:
-                t = torch.randint(1, T, (B,), generator=generator, device=dev)
+                t = draw_global(lambda n: torch.randint(1, T, (n,), generator=generator,
+                                                        device=dev), B, rows)
             loss = ce_at_t(t.to(dev).long(), q_noise)
         else:
             raise ValueError(f"unknown train_mode {c.train_mode!r}")

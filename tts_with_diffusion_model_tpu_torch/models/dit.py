@@ -24,11 +24,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import route
-from .base import (Dense, Embed, LayerNorm, MultiEmbedding, gelu, resolve_remat_policy,
-                   sinusoidal_embedding)
+from ..parallel.mesh import Split
+from .base import (Dense, Embed, LayerNorm, MultiEmbedding, TensorParallelMlp, gelu,
+                   resolve_remat_policy, sinusoidal_embedding)
 
 
-class Mlp(nn.Module):
+class Mlp(TensorParallelMlp, nn.Module):
     """in → hidden → out with erf GELU, SiLU or ReLU."""
 
     def __init__(self, d_in: int, hidden: int, out: int, act: str = "gelu", dtype=None):
@@ -59,6 +60,21 @@ class MHA(nn.Module):
         self.k = Dense(d_model, d_model, dtype=dtype)
         self.v = Dense(d_model, d_model, dtype=dtype)
         self.out = Dense(d_model, d_model, dtype=dtype)
+
+    def tp_plan(self, tp: int) -> dict[str, Split]:
+        """q, k, v (EMBED, HEADS) column-parallel, out (HEADS, EMBED)
+        row-parallel."""
+        if self.n_heads % tp:
+            return {}
+        cols = {f"{n}.{w}": Split(0, "heads") for n in "qkv" for w in ("weight", "bias")}
+        return {**cols, "out.weight": Split(1, "heads")}
+
+    def tp_shard(self, axis):
+        self.n_heads //= axis.size
+        self.d_model //= axis.size
+        for lin in (self.q, self.k, self.v):
+            lin.tp = ("col", axis)
+        self.out.tp = ("row", axis)
 
     def _heads(self, t):
         return t.reshape(*t.shape[:-1], self.n_heads, self.d_model // self.n_heads)
@@ -122,6 +138,8 @@ class DiTBlock(nn.Module):
         self.cross_attn2 = MHA(d_model, n_heads, dtype=dtype)
         self.norm3 = LayerNorm(d_model, 1e-6)
         self.mlp = Mlp(d_model, int(d_model * mlp_ratio), d_model, dtype=dtype)
+        # flax tags it (EMBED, MLP); it has no row-parallel partner, so it
+        # declares no split and replicates under tp
         self.timestep_fc = Dense(d_model, 2 * d_model, dtype=dtype)
 
     def cross_kv(self, text_cond, spkr_cond):
@@ -165,9 +183,9 @@ class DiTDenoiser(nn.Module):
         self.d_model, self.n_layers, self.dtype, self.resp_pe = d_model, n_layers, dtype, resp_pe
         self.remat = remat
         self.remat_context = resolve_remat_policy(remat_policy)
-        self.text_emb = Embed(n_classes, d_model)
+        self.text_emb = Embed(n_classes, d_model, vocab=True)
         self.proms_emb = MultiEmbedding(n_prom_levels, n_classes, d_model)
-        self.resps_emb = Embed(n_classes, d_model)
+        self.resps_emb = Embed(n_classes, d_model, vocab=True)
         self.time_emb = Embed(timesteps + 1, d_model)
         self.text_tower = CondTower(d_model, n_heads, mlp_mult=2, ffn_dim=tower_ffn_dim,
                                     act=tower_act, dtype=dtype)
@@ -175,7 +193,7 @@ class DiTDenoiser(nn.Module):
                                     act=tower_act, dtype=dtype)
         for i in range(n_layers):
             self.add_module(f"dit_{i}", DiTBlock(d_model, n_heads, dtype=dtype))
-        self.final = Dense(d_model, n_classes, dtype=torch.float32)
+        self.final = Dense(d_model, n_classes, dtype=torch.float32, vocab=True)
 
     def blocks(self):
         return [getattr(self, f"dit_{i}") for i in range(self.n_layers)]

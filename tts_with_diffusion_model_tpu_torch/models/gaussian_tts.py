@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..diffusion.gaussian import (GaussianDiffusion, denormalize_tokens, nearest_embedding,
                                   normalize_tokens)
+from ..parallel.comm import draw_global, global_sum
 from .base import Dense, Embed, MultiEmbedding, resolve_remat_policy, sinusoidal_embedding
 from .dit import CondTower, DiTBlock, tower_inputs
 
@@ -150,7 +151,11 @@ class GaussianDenoiser(nn.Module):
 
 class GaussianDiffusionModel(nn.Module):
     """A Gaussian denoiser paired with the process constants: the ε-MSE loss
-    and the T-step ancestral sampler."""
+    and the T-step ancestral sampler.  Under tp the family replicates whole
+    (``tp_replicate``): the port has no tp split of its domain tables and
+    UNets, where JAX shards them (ROADMAP §3)."""
+
+    tp_replicate = True
 
     def __init__(self, config: GaussianConfig = GaussianConfig(), dtype=torch.bfloat16):
         super().__init__()
@@ -203,26 +208,31 @@ class GaussianDiffusionModel(nn.Module):
         return denormalize_tokens(x[..., 0], self.config.n_tokens)
 
     def loss(self, batch: dict, generator: torch.Generator | None, max_t: int | None = None,
-             noise: torch.Tensor | None = None, t: torch.Tensor | None = None):
+             noise: torch.Tensor | None = None, t: torch.Tensor | None = None, rows=None):
         """ε-prediction MSE at a sampled timestep → (mse, {"mse": mse}): t ~
         U{1, …, T−1} per row with T = ``max_t`` or the config's, ε ~ N(0, 1)
         over the domain, both from ``generator`` unless ``t`` / ``noise``
         inject them; the squared error summed over valid frames and the
-        domain width, divided by (valid frames × width)."""
+        domain width, divided by (valid frames × width).  In a dp step
+        (``rows``: ``parallel.comm.Rows``) the draws are the global batch's,
+        cut to this rank's rows, and so is the denominator."""
         c = self.config
         T = max_t or c.timesteps
         resp, rm = batch["resp"], batch["resp_mask"]
         B, dev = resp.shape[0], resp.device
         x0 = self._to_domain(resp.long())
         if t is None:
-            t = torch.randint(1, T, (B,), generator=generator, device=dev)
+            t = draw_global(lambda n: torch.randint(1, T, (n,), generator=generator,
+                                                    device=dev), B, rows)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=dev)
+            noise = draw_global(lambda n: torch.randn((n, *x0.shape[1:]), generator=generator,
+                                                      device=dev), B, rows)
         t, noise = t.to(dev).long(), noise.to(dev).float()
         x_t = self.process.q_sample(x0, t, noise) * rm[..., None]
         eps = self.denoiser(batch["text"], batch["text_mask"], batch["proms"],
                             batch["prom_mask"], x_t, rm, t)
-        mse = ((eps - noise) ** 2 * rm[..., None]).sum() / (rm.sum() * x0.shape[-1]).clamp_min(1.0)
+        count = global_sum(rm.sum(), rows) * x0.shape[-1]
+        mse = ((eps - noise) ** 2 * rm[..., None]).sum() / count.clamp_min(1.0)
         return mse, {"mse": mse}
 
     @torch.no_grad()

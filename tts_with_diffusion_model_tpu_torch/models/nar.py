@@ -31,19 +31,20 @@ class NAR(nn.Module):
                          dtype=dtype)
 
     def forward(self, text, text_mask, proms, prom_mask, resps, resp_mask, quant_levels,
-                generator=None):
+                generator=None, rows=None):
         """Training forward.  ``resps``: (B, Tr, 8) all levels;
         ``quant_levels``: (B,) level l in [0, 7) per row.  A ``generator``
-        turns dropout on.  Returns (logits, {"nll": loss})."""
+        turns dropout on; ``rows`` is a dp step's (``parallel.comm.Rows``).
+        Returns (logits, {"nll": loss})."""
         lvl = torch.arange(self.n_resp_levels, device=text.device)
         level_mask = (lvl[None, :] <= quant_levels[:, None]).float()
         targ = resps.gather(-1, (quant_levels + 1)[:, None, None].expand(-1, resps.shape[1], 1))
         logits = self.base(text, text_mask, proms, prom_mask, resps[..., :self.n_resp_levels],
                            resp_mask, resp_level_mask=level_mask, quant_levels=quant_levels,
-                           generator=generator)
+                           generator=generator, rows=rows)
         targets = build_targets(text, text_mask, prom_mask, targ[..., 0], resp_mask,
                                 resp_loss_only=True, shift=False, stop_token=None)
-        return logits, {"nll": masked_cross_entropy(logits, targets)}
+        return logits, {"nll": masked_cross_entropy(logits, targets, rows)}
 
     def forward_level(self, text, text_mask, proms, prom_mask, resps, resp_mask, n_known: int):
         """Predict level ``n_known`` from levels < n_known → resp-position

@@ -40,6 +40,16 @@ Around it, a stdlib-only threaded HTTP API:
 window; at most ``max_pending`` requests are in flight, the rest are shed
 with 503 and ``Retry-After``; SIGTERM and SIGINT drain in-flight requests.
 
+Tensor-parallel serving (``--mesh-tp k``, ``Synthesizer(mesh_tp=k)``): the
+first stage and the NAR split their heads, MLP hidden and vocabularies over
+a 1×k mesh of processes, one per card, launched by ``torchrun
+--nproc-per-node k`` (the JAX package does it in one process).  Rank 0 runs
+the server, the ``Batcher``, prompt encoding and the codec; for each device
+batch it broadcasts the prepared rows and seeds, and the followers
+(``Synthesizer.follow``) run the first stage and the NAR with it in
+lockstep.  The drain broadcasts a stop; a follower that fails exits
+non-zero, and torchrun then ends the group.
+
 Threads: every device batch runs on one thread (the Batcher's worker, or
 the handler under ``_lock``), and so does each codec decode.  A handler's
 prompt encode runs on the device outside ``_lock``, so it overlaps a batch
@@ -55,6 +65,7 @@ import io
 import itertools
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -71,6 +82,7 @@ from .models.ar import AR, ar_generate, ar_generate_speculative
 from .models.diffusion import DiffusionModel, ancestral_schedule
 from .models.gaussian_tts import GaussianDiffusionModel
 from .models.nar import NAR, nar_generate
+from .utils import distributed
 from .utils.device import resolve_device
 from .utils.rng import RowKeys
 
@@ -97,14 +109,15 @@ class Synthesizer:
                  *, device="cuda", max_batch: int = 1, decode: str | None = None,
                  stride: int = 1, maskgit_steps: int = 12, temperature: float = 1.0,
                  nar_temperature: float = 0.2, bf16: bool = True, max_ar_steps: int = 448,
-                 draft: AR | None = None, spec_k: int = 4):
+                 draft: AR | None = None, spec_k: int = 4, mesh_tp: int = 1):
         """``decode`` is "maskgit" or "ancestral"; None means ancestral when
         ``stride`` > 1 (a knob of the ancestral chain), else MaskGIT; both
         are the D3PM's and refused for a Gaussian first stage.  A diffusion
         bundle's config sets the text, prompt and generation lengths; an AR
         first stage decodes up to ``max_ar_steps`` tokens, and a ``draft``
         AR turns on speculative decoding with ``spec_k`` proposals per
-        round."""
+        round.  ``mesh_tp`` > 1 shards the first stage, the draft and the
+        NAR over a process group of that many ranks (torchrun's)."""
         from .utils.precision import cast_params_bf16
 
         self.device = resolve_device(device)
@@ -122,6 +135,21 @@ class Synthesizer:
             for m in (self.first, self.nar, self.draft):
                 if m is not None:
                     cast_params_bf16(m)
+        self.mesh = None
+        if mesh_tp > 1:
+            if distributed.world_size() != mesh_tp:
+                raise ValueError(
+                    f"Synthesizer(mesh_tp={mesh_tp}) needs a process group of {mesh_tp} ranks "
+                    f"(this process is in a world of {distributed.world_size()}): launch it "
+                    f"with torchrun --nproc-per-node {mesh_tp} (python -m "
+                    "torch.distributed.run)")
+            from .parallel.infer import shard_params
+            from .parallel.mesh import build_mesh
+
+            self.mesh = build_mesh(1, mesh_tp)
+            for m in (self.first, self.nar, self.draft):
+                if m is not None:
+                    shard_params(self.mesh, m)
         self.codec = codec
         self.phone_symmap = phone_symmap
         self.temperature = temperature
@@ -275,6 +303,8 @@ class Synthesizer:
         proms, pm = stack("proms")[:, :pb], stack("prom_mask")[:, :pb].contiguous()
         keys = RowKeys.from_seeds(row_seeds)
         with self._lock:
+            if self.mesh is not None and distributed.is_global_leader():
+                distributed.broadcast_object(("batch", prepared, list(seeds)))
             if self.is_ar:
                 return self._ar_batch(text, tm, proms, pm, keys, n_req, want_wav)
             if self.is_gaussian:
@@ -403,6 +433,33 @@ class Synthesizer:
             merged = codes if context is None else np.concatenate([context, codes], axis=0)
             context = merged[-context_frames:] if context_frames else None
             yield wav
+
+    # ---------------- tensor-parallel serving ----------------
+
+    @property
+    def is_follower(self) -> bool:
+        """A rank of a tp group that is not rank 0 (runs ``follow``)."""
+        return self.mesh is not None and not distributed.is_global_leader()
+
+    @torch.no_grad()
+    def follow(self) -> int:
+        """A follower's loop: take each device batch rank 0 broadcasts and
+        run its device stages with it, until rank 0 stops the group →
+        the batches run."""
+        n = 0
+        while True:
+            msg = distributed.broadcast_object(None)
+            if msg[0] == "stop":
+                return n
+            _, prepared, seeds = msg
+            self._device_batch(prepared, seeds, want_wav=False)
+            n += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' loops (the drain's last step)."""
+        if self.mesh is not None and distributed.is_global_leader():
+            with self._lock:
+                distributed.broadcast_object(("stop",))
 
     #: the warm-up request's text
     WARMUP_TEXT = "warm up the compiler"
@@ -824,7 +881,8 @@ def main(argv=None):
     parser.add_argument("--stride", type=int, default=1,
                         help="ancestral skip-step stride (D3PM bundles only)")
     parser.add_argument("--mesh-tp", type=int, default=1,
-                        help="tensor-parallel degree (only 1 is ported)")
+                        help="tensor-parallel degree: shard heads / MLP / vocab over this many "
+                             "ranks of a torchrun group (1 = one process)")
     parser.add_argument("--decode", choices=("ancestral", "maskgit"), default=None,
                         help="D3PM sampler (default: ancestral when --stride > 1, else maskgit)")
     parser.add_argument("--maskgit-steps", type=int, default=12)
@@ -836,29 +894,32 @@ def main(argv=None):
                         help="requests in flight beyond this many are shed with 503 and "
                              "Retry-After (0: no bound)")
     args = parser.parse_args(argv)
-    if args.mesh_tp > 1:
-        parser.error(f"--mesh-tp {args.mesh_tp}: tensor-parallel serving is not ported yet "
-                     "(ROADMAP.md queue 1 item 14, parallel/mesh.py and parallel/infer.py)")
 
     from .codec.encodec import find_weights
 
     logging.basicConfig(level=logging.INFO)
+    if args.mesh_tp > 1:
+        distributed.init_distributed(args.device)
     try:
         synth = Synthesizer.from_bundles(
             args.ar_ckpt, args.nar_ckpt, find_weights(args.codec), device=args.device,
             max_batch=args.max_batch, decode=args.decode, stride=args.stride,
             maskgit_steps=args.maskgit_steps, max_ar_steps=args.max_ar_steps,
             draft_ckpt=args.draft_ckpt, spec_k=args.spec_k, temperature=args.temperature,
-            nar_temperature=args.nar_temperature)
+            nar_temperature=args.nar_temperature, mesh_tp=args.mesh_tp)
     except (NotImplementedError, ValueError) as e:
         parser.error(str(e))
+    if synth.is_follower:
+        n = synth.follow()
+        _logger.info("follower rank %d: %d device batches; exiting", distributed.global_rank(), n)
+        return
     if args.warmup_reference:
         synth.warmup(args.warmup_reference)
     batcher = Batcher(synth, args.batch_window_ms) if args.max_batch > 1 else None
     server = make_server(synth, args.host, args.port, batcher, max_pending=args.max_pending)
     host, port = server.server_address[:2]
-    _logger.info("Serving on http://%s:%d (max_batch=%d, device %s)", host, port,
-                 synth.max_batch, synth.device)
+    _logger.info("Serving on http://%s:%d (max_batch=%d, device %s, pid %d)", host, port,
+                 synth.max_batch, synth.device, os.getpid())
 
     import signal
 
@@ -871,6 +932,7 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _drain)
     server.serve_forever()
     server.server_close()  # joins in-flight handler threads
+    synth.stop_followers()
     _logger.info("drained; exiting")
 
 

@@ -25,9 +25,26 @@ The update is optax's, written out, because torch's own helpers differ:
     clipping norm is taken over the trainable gradients only.  Accumulation
     stays outside the mask, as ``MultiSteps`` does.
 
+On a dp×tp mesh (``parallel/mesh.py``) the engine shards the model over tp
+(each rank keeps its block of the split parameters, their moments and EMA)
+and takes ``batch // dp`` rows per rank.  The losses are token-weighted
+means: the engine passes the loss this rank's rows (``rows=``, a
+``parallel.comm.Rows``), with which it draws for the global batch and
+divides by the global count, so each rank's loss is its share of the
+global mean; the gradients are summed over dp, and a dp step is the 1×1
+step on the same global batch.  The
+clipping norm sums the tp-split gradients over tp and counts the replicated
+ones once.  ``zero1`` keeps on each rank its dp block of every moment
+(``mesh.zero1_shardings``: the rank updates its block of the parameter,
+then the column all-gathers it).
+
 Checkpoints are ``torch.save`` files ``ckpt_dir/<name>/step_<8 digits>.pt``
-(the JAX package writes orbax directories of the same names; the bundle
-export is a later slice).
+(the JAX package writes orbax directories of the same names) holding full
+tensors, whatever the mesh: the global leader writes them and a restore
+takes this rank's blocks, so a run saved under one mesh resumes under
+another.  The optimizer state is keyed by parameter name (a checkpoint
+holding ``optimizer.state_dict()``, keyed by position, is read as the
+trained parameters in order).
 """
 
 from __future__ import annotations
@@ -42,6 +59,10 @@ import numpy as np
 import torch
 
 from ..convert import tree_path, torch_params_to_jax
+from ..parallel import comm
+from ..parallel.mesh import (build_mesh, full_state_dict, full_tensor, local_tensor,
+                             param_shardings, shard_module, zero1_shardings)
+from ..utils import distributed
 
 _logger = logging.getLogger(__name__)
 
@@ -81,8 +102,12 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class LossFn(Protocol):
+    """``(module, batch, generator) → (loss, stats)``; in a dp step the
+    engine also passes ``rows`` (``parallel.comm.Rows``), so a loss that
+    does not take it fails there rather than average per rank."""
+
     def __call__(self, module: torch.nn.Module, batch: dict,
-                 generator: torch.Generator | None) -> tuple[torch.Tensor, dict]:
+                 generator: torch.Generator | None, rows=None) -> tuple[torch.Tensor, dict]:
         ...
 
 
@@ -127,8 +152,12 @@ class Engine:
 
     def __init__(self, name: str, module: torch.nn.Module, loss_fn: LossFn, opt_cfg: dict,
                  ckpt_root: Path, ema_decay: float | None = None,
-                 trainable_filter: Callable[[str], bool] | None = None):
+                 trainable_filter: Callable[[str], bool] | None = None, mesh=None,
+                 zero1: bool = False):
         self.name = name
+        self.mesh = mesh if mesh is not None else build_mesh(1, 1)
+        if getattr(module, "_tp_axis", None) is None:
+            shard_module(module, self.mesh)
         self.module = module
         self.loss_fn = loss_fn
         self.ckpt_root = Path(ckpt_root)
@@ -144,8 +173,21 @@ class Engine:
         self.trainable = ([True] * len(self.params) if trainable_filter is None else
                           [bool(trainable_filter(path)) for path in jax_paths(module)])
         self.trained = [p for p, keep in zip(self.params, self.trainable) if keep]
-        self.optimizer = torch.optim.Adam(self.trained, lr=self.schedule(0), betas=ADAM_BETAS,
-                                          eps=ADAM_EPS)
+        self.trained_names = [n for n, keep in zip(self.names, self.trainable) if keep]
+        layout = param_shardings(1, module)
+        self.tp_split = [layout[n] is not None for n in self.names]
+        dp = self.mesh.dp
+        # ZeRO-1: the optimizer holds this rank's dp block of each trained
+        # parameter (the parameter itself where no dimension divides dp)
+        self.zero1_dims = (zero1_shardings(self.mesh, module, set(self.trained_names))
+                           if zero1 and dp.size > 1 else None)
+        self.opt_params = self.trained
+        if self.zero1_dims is not None:
+            self.opt_params = [p if self._z(n) is None else
+                               self._block(p.detach(), n).clone().requires_grad_()
+                               for n, p in zip(self.trained_names, self.trained)]
+        self.optimizer = torch.optim.Adam(self.opt_params, lr=self.schedule(0),
+                                          betas=ADAM_BETAS, eps=ADAM_EPS)
         self.update_count = 0  # optimizer updates applied (optax's inner count)
         self.mini_step = 0     # micro-batches accumulated toward the next update
         self.acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
@@ -161,22 +203,84 @@ class Engine:
         return float(self.schedule(self.step))
 
     def ema_state_dict(self) -> dict[str, torch.Tensor] | None:
-        """The EMA weights by parameter name (None when EMA is off)."""
-        return None if self.ema is None else dict(zip(self.names, self.ema))
+        """The EMA weights by parameter name (None when EMA is off), full
+        tensors whatever the mesh (every rank of a tp row calls it)."""
+        if self.ema is None:
+            return None
+        return {n: full_tensor(self.module, n, e) for n, e in zip(self.names, self.ema)}
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The parameters as full tensors (every rank of a tp row calls it)."""
+        return full_state_dict(self.module)
+
+    # ---------------- the mesh ----------------
+
+    def _z(self, name: str) -> int | None:
+        return None if self.zero1_dims is None else self.zero1_dims.get(name)
+
+    def _block(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's ZeRO-1 block of a tensor laid out like ``name``'s
+        (this rank's tp block of it)."""
+        d, dp = self._z(name), self.mesh.dp
+        if d is None:
+            return t
+        n = t.shape[d] // dp.size
+        return t.narrow(d, dp.rank * n, n)
+
+    def _norm(self, tensors, split) -> torch.Tensor:
+        """The global norm of a gradient tree whose ``split`` leaves are
+        this rank's tp blocks: their squares summed over tp, the replicated
+        leaves' counted once."""
+        if self.mesh.tp.size == 1:
+            return global_norm(tensors)
+        sq = [torch.zeros((), dtype=torch.float32, device=self.device) for _ in range(2)]
+        for t, is_split in zip(tensors, split):
+            sq[is_split] = sq[is_split] + t.float().square().sum()
+        return torch.sqrt(sq[0] + comm.all_reduce(sq[1], self.mesh.tp))
+
+    def _dp_sum(self, tensors):
+        """Sum a list of tensors over dp (one flat all-reduce)."""
+        if self.mesh.dp.size == 1:
+            return tensors
+        from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+        flat = comm.all_reduce(_flatten_dense_tensors(tensors), self.mesh.dp)
+        return list(_unflatten_dense_tensors(flat, tensors))
 
     @torch.no_grad()
     def _apply(self, grads):
         """Clip the trainable gradients by their global norm, then one Adam
-        update at the schedule's value for the current update count."""
+        update at the schedule's value for the current update count (with
+        ZeRO-1: of this rank's blocks, then gathered over dp)."""
+        split = [s for s, keep in zip(self.tp_split, self.trainable) if keep]
         grads = [g for g, keep in zip(grads, self.trainable) if keep]
-        norm = global_norm(grads)
+        norm = self._norm(grads, split)
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
-        for p, g in zip(self.trained, grads):
-            p.grad = g * factor
+        for name, p, g in zip(self.trained_names, self.opt_params, grads):
+            p.grad = self._block(g, name) * factor
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.update_count)
         self.optimizer.step()
+        if self.zero1_dims is not None:
+            self._gather_blocks()
         self.update_count += 1
+
+    def _gather_blocks(self):
+        """ZeRO-1: every rank's updated blocks back into the parameters, in
+        one all-gather of this rank's blocks laid end to end (every rank's
+        have the same sizes)."""
+        split = [(name, p, b) for name, p, b in zip(self.trained_names, self.trained,
+                                                     self.opt_params) if p is not b]
+        if not split:
+            return
+        flat = torch.cat([b.detach().reshape(-1) for _, _, b in split])
+        ranks = comm.all_gather(flat, self.mesh.dp).view(self.mesh.dp.size, -1)
+        offset = 0
+        for name, p, b in split:
+            n = b.numel()
+            p.copy_(torch.cat([r[offset:offset + n].view_as(b) for r in ranks], dim=self._z(name)))
+            b.grad = None
+            offset += n
 
     def train_batch(self, batch: dict, generator: torch.Generator | None,
                     sync: bool = True) -> dict:
@@ -186,12 +290,21 @@ class Engine:
         arrays = batch_to_device(batch, self.device)
         for p in self.params:
             p.grad = None
-        loss, stats = self.loss_fn(self.module, arrays, generator)
+        dp = self.mesh.dp
+        extra = {}
+        if dp.size > 1:
+            extra["rows"] = comm.Rows(dp, next(v.shape[0] for v in arrays.values()
+                                               if v.ndim >= 1))
+        loss, stats = self.loss_fn(self.module, arrays, generator, **extra)
         loss.backward()
         with torch.no_grad():
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in self.params]
-            grad_norm = global_norm(grads)
+            grads = self._dp_sum([p.grad if p.grad is not None else torch.zeros_like(p)
+                                  for p in self.params])
+            if dp.size > 1:  # each rank's loss is its share of the global mean
+                loss = comm.all_reduce(loss.detach().clone(), dp)
+                stats = {k: comm.all_reduce(v.detach().clone(), dp)
+                         if isinstance(v, torch.Tensor) else v for k, v in stats.items()}
+            grad_norm = self._norm(grads, self.tp_split)
             if self.acc is None:
                 self._apply(grads)
             else:
@@ -227,7 +340,8 @@ class Engine:
         names = {id(p): n for n, p in root.named_parameters()}
 
         def tree(values):
-            flat = torch_params_to_jax(root, {names[id(p)]: v for p, v in zip(self.params, values)})
+            full = [full_tensor(self.module, n, v) for n, v in zip(self.names, values)]
+            flat = torch_params_to_jax(root, {names[id(p)]: v for p, v in zip(self.params, full)})
             return _tree([f"params/{k}" for k in flat], flat.values())
 
         diagnostic.observe_grads(tree(grads))
@@ -239,29 +353,53 @@ class Engine:
     def _ckpt_dir(self) -> Path:
         return self.ckpt_root / self.name
 
+    def _full(self, tensors) -> list | None:
+        """Full tensors of a list laid out like the parameters."""
+        if tensors is None:
+            return None
+        return [full_tensor(self.module, n, t) for n, t in zip(self.names, tensors)]
+
+    def _opt_state(self) -> dict:
+        """Adam's moments and counts by parameter name, as full tensors."""
+        out = {}
+        for name, p in zip(self.trained_names, self.opt_params):
+            entry = {}
+            for k, v in self.optimizer.state.get(p, {}).items():
+                if k != "step" and self._z(name) is not None:
+                    v = comm.all_gather(v, self.mesh.dp, dim=self._z(name))
+                entry[k] = v if k == "step" else full_tensor(self.module, name, v)
+            out[name] = entry
+        return out
+
     def _state(self) -> dict:
+        """The checkpoint: full tensors whatever the mesh (every rank calls
+        it: the gathers are collectives)."""
         return {
-            "params": self.module.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "params": full_state_dict(self.module),
+            "optimizer": self._opt_state(),
             "update_count": self.update_count,
             "mini_step": self.mini_step,
-            "acc": self.acc,
-            "ema": self.ema,
+            "acc": self._full(self.acc),
+            "ema": self._full(self.ema),
             "step": self.step,
         }
 
     def save_checkpoint(self, keep: int = 3) -> Path:
         """Write ``step_<8 digits>.pt`` (via a temporary file, so a kill
-        mid-save leaves no partial checkpoint) and keep the newest ``keep``."""
+        mid-save leaves no partial checkpoint) and keep the newest ``keep``.
+        Every rank calls it; the global leader writes."""
         d = self._ckpt_dir()
-        d.mkdir(parents=True, exist_ok=True)
         path = (d / f"step_{self.step:08d}.pt").absolute()
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(self._state(), tmp)
-        os.replace(tmp, path)
-        _logger.info(f"Saved checkpoint {path}")
-        for old in sorted(d.glob("step_*.pt"))[:-keep]:
-            old.unlink(missing_ok=True)
+        state = self._state()
+        if distributed.is_global_leader():
+            d.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            _logger.info(f"Saved checkpoint {path}")
+            for old in sorted(d.glob("step_*.pt"))[:-keep]:
+                old.unlink(missing_ok=True)
+        distributed.barrier()
         return path
 
     def load_checkpoint(self, step: int | None = None) -> bool:
@@ -287,22 +425,62 @@ class Engine:
         else:
             return False
         state = torch.load(path, map_location=self.device, weights_only=True)
-        self.module.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        local = {k: local_tensor(self.module, k, v) for k, v in state["params"].items()}
+        self.module.load_state_dict(local)
+        self._load_opt_state(self._named_opt_state(state["optimizer"]))
         self.update_count = int(state["update_count"])
         self.mini_step = int(state["mini_step"])
         if self.acc is not None and state["acc"] is not None:
-            for a, s in zip(self.acc, state["acc"]):
-                a.copy_(s)
+            for n, a, s in zip(self.names, self.acc, state["acc"]):
+                a.copy_(local_tensor(self.module, n, s))
         if self.ema is not None:
             if state["ema"] is None:
                 _logger.warning("Checkpoint has no EMA; seeding EMA from params")
                 self.ema = [p.detach().clone() for p in self.params]
             else:
-                self.ema = [e.to(self.device) for e in state["ema"]]
+                self.ema = [local_tensor(self.module, n, e).to(self.device).clone()
+                            for n, e in zip(self.names, state["ema"])]
         self.step = int(state["step"])
         _logger.info(f"Restored checkpoint {path} (step {self.step})")
         return True
+
+    def _named_opt_state(self, saved: dict) -> dict:
+        """The checkpoint's optimizer state by parameter name: an
+        ``optimizer.state_dict()`` (keyed by position among the trained
+        parameters, as a 1×1 engine wrote it before the state was keyed by
+        name) is converted; another layout raises."""
+        if "param_groups" not in saved:
+            return saved
+        (group,) = saved["param_groups"]
+        if len(group["params"]) != len(self.trained_names):
+            raise ValueError(
+                f"checkpoint optimizer state (optimizer.state_dict() layout) holds "
+                f"{len(group['params'])} parameters, the engine trains "
+                f"{len(self.trained_names)}")
+        return {self.trained_names[i]: saved["state"][pid]
+                for i, pid in enumerate(group["params"]) if pid in saved["state"]}
+
+    def _load_opt_state(self, saved: dict) -> None:
+        """Adam's state from full tensors: this rank's tp block, then its
+        ZeRO-1 block; the step counts stay on the host, as Adam keeps them.
+        A parameter with no saved state (not updated yet) gets none.  Every
+        ZeRO-1 block is taken from its restored parameter."""
+        with torch.no_grad():
+            for name, p, full_p in zip(self.trained_names, self.opt_params, self.trained):
+                if p is not full_p:
+                    p.copy_(self._block(full_p.detach(), name))
+                entry = saved.get(name)
+                if not entry:
+                    self.optimizer.state.pop(p, None)
+                    continue
+                st = {}
+                for k, v in entry.items():
+                    if k == "step":
+                        st[k] = v.detach().to("cpu", torch.float32)
+                    else:
+                        st[k] = self._block(local_tensor(self.module, name, v), name).to(
+                            p.device).clone()
+                self.optimizer.state[p] = st
 
 
 def _to_floats(stats: dict) -> dict:

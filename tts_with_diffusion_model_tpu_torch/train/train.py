@@ -17,8 +17,12 @@ level, DTW mel-cepstral distortion) under ``log_dir/<step>/<name>/``.  On
 the card a non-causal eval attention runs the serving kernel and a causal
 one the training kernel's forward (``ops/route.py``).
 
-Not ported yet, and rejected by name rather than ignored: ``zero1`` and a
-mesh larger than 1×1.
+Under ``torchrun`` the processes join one group (``utils/distributed``) and
+train on a ``mesh_dp`` × ``mesh_tp`` mesh (``parallel/mesh.py``):
+``batch_size`` is the global batch, each rank loads ``batch_size // dp`` rows
+of its own stream, the engine shards the model over tp and sums gradients
+over dp, and ``zero1`` splits Adam's moments over dp.  Every rank evaluates
+(a tp row computes together); the global leader logs and writes.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ from ..data.dataset import BucketSpec, create_train_val_dataloader
 from ..models import get_model
 from ..models.ar import ar_generate
 from ..models.nar import nar_generate
+from ..parallel.comm import draw_global
+from ..parallel.mesh import build_mesh
+from ..utils import distributed
 from ..utils.device import resolve_device
 from ..utils.logging import setup_logging
 from ..utils.metrics import aggregate_metrics, eval_utterance_metrics
@@ -49,21 +56,12 @@ from .engine import Engine, batch_to_device
 _logger = logging.getLogger(__name__)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on a knob whose code the port does not have yet."""
-    if cfg.zero1:
-        raise NotImplementedError(
-            "zero1=True is not ported yet (ROADMAP queue 1, \"parallel/mesh.py, "
-            "parallel/infer.py\"); the port trains on one card without it")
-    check_mesh(cfg)
-
-
-def check_mesh(cfg: Config) -> None:
-    """Raise on a mesh larger than 1×1 (not ported yet)."""
-    if cfg.mesh_dp not in (-1, 1) or cfg.mesh_tp != 1:
-        raise NotImplementedError(
-            f"mesh_dp={cfg.mesh_dp} mesh_tp={cfg.mesh_tp} is not ported yet (ROADMAP queue 1, "
-            "\"parallel/mesh.py, parallel/infer.py\"); the port trains on a 1x1 mesh")
+def setup_mesh(cfg: Config):
+    """Join torchrun's process group (if any) and build the config's mesh
+    (a world of one: 1×1) → (device, mesh)."""
+    distributed.init_distributed(cfg.device)
+    device = resolve_device(cfg.device)
+    return device, build_mesh(cfg.mesh_dp, cfg.mesh_tp)
 
 
 def build_model(cfg: Config, device=None):
@@ -103,30 +101,30 @@ def make_loss_fn(cfg: Config, model):
         if max_t is not None:
             max_t = min(max_t, model.config.timesteps)
 
-        def loss_fn(module, batch, generator):
-            return module.loss(batch, generator, max_t=max_t)
+        def loss_fn(module, batch, generator, rows=None):
+            return module.loss(batch, generator, max_t=max_t, rows=rows)
 
         return loss_fn
 
     if name.startswith("ar"):
 
-        def loss_fn(module, batch, generator):
+        def loss_fn(module, batch, generator, rows=None):
             _, losses = module(batch["text"], batch["text_mask"], batch["proms"],
                                batch["prom_mask"], batch["resp"], batch["resp_mask"],
-                               generator=generator)
+                               generator=generator, rows=rows)
             return sum(losses.values()), losses
 
         return loss_fn
 
     if name.startswith("nar"):
 
-        def loss_fn(module, batch, generator):
+        def loss_fn(module, batch, generator, rows=None):
             B = batch["text"].shape[0]
-            quant_levels = torch.randint(0, 7, (B,), generator=generator,
-                                         device=batch["text"].device)
+            quant_levels = draw_global(lambda n: torch.randint(
+                0, 7, (n,), generator=generator, device=batch["text"].device), B, rows)
             _, losses = module(batch["text"], batch["text_mask"], batch["proms"],
                                batch["prom_mask"], batch["resps"], batch["resp_mask"],
-                               quant_levels, generator=generator)
+                               quant_levels, generator=generator, rows=rows)
             return sum(losses.values()), losses
 
         return loss_fn
@@ -140,11 +138,15 @@ def init_params(cfg: Config, model) -> None:
     init_seeded(getattr(model, "denoiser", model), cfg.seed)
 
 
-def load_engines(cfg: Config | None = None, model=None):
-    """model → seeded init → Engine → resume from the latest checkpoint."""
+def load_engines(cfg: Config | None = None, model=None, mesh=None):
+    """model → seeded init → Engine on the mesh (the config's, by default) →
+    resume from the latest checkpoint."""
     if cfg is None:
         cfg = Config.from_cli()
-    device = resolve_device(cfg.device)
+    if mesh is None:
+        device, mesh = setup_mesh(cfg)
+    else:
+        device = resolve_device(cfg.device)
     if model is None:
         model = build_model(cfg, device)
         init_params(cfg, model)
@@ -154,7 +156,7 @@ def load_engines(cfg: Config | None = None, model=None):
     opt_cfg["gradient_accumulation_steps"] = cfg.gradient_accumulation_steps
     engines = dict(model=Engine(name="model", module=model, loss_fn=make_loss_fn(cfg, model),
                                 opt_cfg=opt_cfg, ckpt_root=cfg.ckpt_dir,
-                                ema_decay=cfg.ema_decay))
+                                ema_decay=cfg.ema_decay, mesh=mesh, zero1=cfg.zero1))
     return trainer.load_engines(engines, cfg)
 
 
@@ -230,11 +232,15 @@ def generate_codes(cfg: Config, module, batch: dict, step: int) -> list[np.ndarr
 def decode_eval_audio(cfg: Config, engines, name: str, batch: dict, codec) -> dict:
     """Hypothesis and reference wavs and their metrics under
     ``log_dir/<step>/<name>/{hyp,ref}``, and ``metrics.json`` (the mean and
-    each utterance's); returns the mean."""
+    each utterance's); returns the mean.  Every rank generates (a tp row
+    computes together); the global leader decodes and writes, the others
+    return None (``codec`` is None there)."""
     step, engine = engines.global_step, engines["model"]
     out_root = Path(cfg.log_dir) / str(step) / name
     with eval_params(cfg, engine):
         hyps = generate_codes(cfg, engine.module, batch, step)
+    if not distributed.is_global_leader():
+        return None
     # the NAR is given level 0: it is reported as teacher-provided, not scored
     teacher_levels = 1 if cfg.model.lower().startswith("nar") else 0
     refs = [np.asarray(batch["resps"][i][: int(batch["resp_mask"][i].sum())])
@@ -270,14 +276,13 @@ def main(cfg: Config | None = None, logger=None):
     replaces the JSON-line stats logger (it gets ``data=stats``)."""
     if cfg is None:
         cfg = Config.from_cli()
-    check_supported(cfg)
-    device = resolve_device(cfg.device)
+    device, mesh = setup_mesh(cfg)
     setup_logging(cfg.log_dir)
 
     model = build_model(cfg, device)
     init_params(cfg, model)
     bucket = make_bucket(cfg, model)
-    train_dl, subtrain_dl, val_dl = create_train_val_dataloader(cfg, bucket)
+    train_dl, subtrain_dl, val_dl = create_train_val_dataloader(cfg, bucket, mesh)
     loss_fn = make_loss_fn(cfg, model)
     codec = None
 
@@ -297,12 +302,12 @@ def main(cfg: Config | None = None, logger=None):
                 losses.append(float(loss))
                 if first_batch is None:
                     first_batch = batch
-        if losses:
+        if losses and distributed.is_global_leader():
             stats = {"loss": sum(losses) / len(losses), "global_step": engines.global_step,
                      "name": name}
             _logger.info(f"Eval: {stats}.")
         if cfg.eval_decode_audio and first_batch is not None:
-            if codec is None:
+            if codec is None and distributed.is_global_leader():
                 codec = encodec.load_codec(encodec.find_weights(), device)
             decode_eval_audio(cfg, engines, name, first_batch, codec)
         return 0
@@ -313,7 +318,7 @@ def main(cfg: Config | None = None, logger=None):
 
     kw = {} if logger is None else {"logger": logger}
     try:
-        return trainer.train(engines_loader=lambda: load_engines(cfg, model),
+        return trainer.train(engines_loader=lambda: load_engines(cfg, model, mesh),
                              train_dl=train_dl, eval_fn=eval_fn, **kw)
     finally:
         close = getattr(train_dl, "close", None)

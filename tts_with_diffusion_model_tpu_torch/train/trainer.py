@@ -12,8 +12,11 @@ package, ≡ ``vall_e/utils/trainer.py:118-210``).
     steps every ``profile_every`` steps under ``log_dir/profile/step_<N>``
     (``utils/profiling.py``), on the global leader only.
 
-One process on one card: the JAX package's leader election and broadcast
-of stdin commands between hosts have nothing to do here.
+Under a process group the global leader reads stdin and broadcasts each
+line, so every rank runs the same commands at the same step; the stats
+line is logged on the local leader; saving ends in a barrier
+(``Engine.save_checkpoint``); every rank evaluates (a tp row computes
+together) and the global leader logs and writes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import selectors
 import sys
 from typing import Callable, Protocol
 
-from ..utils.device import is_global_leader
+from ..utils.distributed import (broadcast_object, is_global_leader, is_local_leader,
+                                 local_leader_only)
 from ..utils.profiling import StepProfiler
 from .engine import Engine, Engines
 
@@ -83,6 +87,7 @@ def _make_infinite_epochs(dl):
         yield from dl
 
 
+@local_leader_only(default=None)
 def logger(data):
     return _logger.info(json.dumps(data, default=str))
 
@@ -130,10 +135,16 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
     """The loop; returns the engines when it ends (``max_iter`` or ``quit``)."""
     engines = engines_loader()
     cfg = engines.cfg
-    cfg.dump()
-    _logger.info(cfg)
+    if is_local_leader():
+        cfg.dump()
+        _logger.info(cfg)
 
-    commands = StdinCommands()
+    # the global leader reads stdin; every rank runs what it read
+    commands = StdinCommands() if is_global_leader() else None
+
+    def poll() -> str:
+        return str(broadcast_object(commands.poll() if commands is not None else ""))
+
     schedule = _DeferredCommands()
     ckpt_period = cfg.save_ckpt_every or cfg.eval_every
     step_seconds = 0.0
@@ -162,7 +173,7 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
 
     try:
         # A command typed before the first step can eval and/or exit at once.
-        startup = commands.poll()
+        startup = poll()
         if startup in ("eval", "eval_quit"):
             eval_fn(engines=engines)
         if startup in ("quit", "eval_quit"):
@@ -180,7 +191,7 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
             logger(data=stats)
 
             step = engines.global_step
-            typed = commands.poll()
+            typed = poll()
             if schedule.maybe_defer(typed):
                 typed = ""
 
@@ -214,4 +225,5 @@ def train(engines_loader: Callable[[], Engines], train_dl, eval_fn: EvalFn,
         flush_async_stats()
         return engines
     finally:
-        commands.close()
+        if commands is not None:
+            commands.close()

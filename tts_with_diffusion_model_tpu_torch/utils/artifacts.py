@@ -19,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .device import is_local_leader
+from .distributed import is_local_leader
 
 _logger = logging.getLogger(__name__)
 

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .device import is_global_leader
+from .distributed import is_global_leader
 
 _logger = logging.getLogger(__name__)
 

@@ -12,6 +12,8 @@ import logging
 import sys
 from pathlib import Path
 
+from .distributed import global_rank
+
 
 class _RankFilter(logging.Filter):
     def __init__(self, rank: int):
@@ -21,12 +23,6 @@ class _RankFilter(logging.Filter):
     def filter(self, record):
         record.rank = self.rank
         return True
-
-
-def global_rank() -> int:
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def setup_logging(log_dir: str | Path | None = None, level: str = "INFO"):
