@@ -31,12 +31,15 @@ then a 2-step D3PM run traced with ``profile_every``; then remat policies: a gen
 D3PM and NAR step under each ``gradient_checkpointing_policy`` with every
 gradient held to whole-block recompute's; then train -> export -> serve
 gaussian: both kernels held to their plain versions at the Gaussian
-family's sites (head widths 32, 16 and 8), then ``model=diffusion-gaussian``
+family's sites (head widths 32, 16 and 8; every bf16 call on the tensor
+cores, unaligned views on the SIMT kernels, kernel 2's backward
+bit-identical at each width), then ``model=diffusion-gaussian``
 (the DiT) and ``-unet2d`` (the conv-UNet) on ``diffusion.yml`` for 8 steps,
 exported with ``--ema`` and round-tripped, and ``-unet2d-ref`` at its
 published widths for 2 steps from seeded weights, each served through a
 ``Synthesizer`` over the exported NAR (100 denoiser calls, 2488 / 788 / 84
-kernel-1 launches per batch) with fp32 codes held identical alone and in a
+kernel-1 launches per batch, every bf16 launch of both kernels on the
+tensor cores) with fp32 codes held identical alone and in a
 cohort of 4 through the ``Batcher``; then codec + evals: a
 ``make_gen_corpus.py`` corpus (8 speakers × 11 utterances), ``codec.calibrate``
 at 8 levels × 1024 codes × 128 dims from the seeded codec (the residual RMS
@@ -57,9 +60,12 @@ counted and both kernels held to their plain versions at every per-rank
 shape.
 Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
-wgmma (HGMMA) and TMA (UTMALDG) instructions in each library, holds each
+wgmma (HGMMA, and HGMMA at each of the shapes 64x8x16, 64x16x16, 64x32x16
+and 64x64x16) and TMA (UTMALDG) instructions in each library, holds each
 kernel against its plain PyTorch version at every shape these paths give it
-(printing each site's kernel/SDPA and kernel/bound ratios), checks that the
+(printing each site's kernel/SDPA and kernel/bound ratios and its launches
+on the tensor cores and on the SIMT kernels; the route each launch reports
+held to ``ops/route.tensor_core_route``), checks that the
 training backward is deterministic, and checks that each path launched its
 kernels the number of times its config says.  Weights are drawn from
 ``--seed`` unless ``--zoo`` loads the committed serving bundles.  Prints
@@ -158,11 +164,11 @@ def main() -> int:
                 f"prompt bucket {sl['prompt_bucket']} != the timed bucket 256")
     smoke.check(sl["expected"] == 376, f"expected launches {sl['expected']} != 376")
     smoke.check(sl["launches"] > 0, "the main path never launched masked_attention")
-    sl_launches = sl["launches"]
+    sl_launches, sl_launches_tc = sl["launches"], sl["launches_tc"]
     del sl
     # each recipe with the kernel-2 launches per step its config gives
     # (remat: every block's forward again in the backward)
-    runs, eval_runs, nar_eval_launches, argvs = [], [], None, {}
+    runs, eval_runs, nar_eval_launches, argvs, runs_tc = [], [], None, {}, {}
     for name, yaml, want in (("train", smoke_train.TRAIN_YAML, (52, 28)),
                              ("train nar", smoke_train.NAR_YAML, (24, 12)),
                              ("train ar", smoke_train.AR_YAML, (24, 12))):
@@ -179,6 +185,7 @@ def main() -> int:
                   f"{tr['frames_per_s']:.0f} padded frames/s, peak allocated (the run's own) "
                   f"{tr['peak_bytes'] / 2**30:.2f} GiB on {info['smi']}")
         runs.append((path, tr["fwd_per_step"], tr["bwd_per_step"], tr["run_launches"]))
+        runs_tc[path] = tr["run_launches_tc"]
         argvs[path] = tr["argv"]
         if path == "nar":
             nar_eval_launches = tr["eval_launches"]
@@ -281,10 +288,12 @@ def main() -> int:
         smoke.check(served["expected"] == serve_want and served["prompt_bucket"] == pb_want,
                     f"{name}: kernel-1 launches per batch {served['expected']} at prompt "
                     f"bucket {served['prompt_bucket']} != {serve_want} at {pb_want}")
-        paths[f"{path} serve"] = smoke_gaussian.path_totals(
-            [*g_serve, *results], served["sites"], served["launches"])
+        paths[f"{path} serve"] = dict(smoke_gaussian.path_totals(
+            [*g_serve, *results], served["sites"], served["launches"]),
+            launches_tc_run=served["launches_tc"])
         if r["fwd_per_step"]:
             runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
+            runs_tc[path] = r["run_launches_tc"]
     train_results += g_train
     del gs
     torch.cuda.empty_cache()
@@ -313,8 +322,9 @@ def main() -> int:
     eval_runs += par["runs2"]
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
                                     paths, checked=[*ar_nar_results, *d3pm_decode_results,
-                                                    *g_serve, *ce_kernel1, *par["kernel1"]]),
-               smoke_train.train_kernel_summary(train_results, runs, eval_runs)]
+                                                    *g_serve, *ce_kernel1, *par["kernel1"]],
+                                    launches_tc=sl_launches_tc),
+               smoke_train.train_kernel_summary(train_results, runs, eval_runs, runs_tc)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "
               f"on {info['kind']} ({info['smi']})")
     print(json.dumps({"kernels": kernels}), flush=True)

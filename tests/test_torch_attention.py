@@ -1,19 +1,25 @@
 """The port's masked attention against the JAX package's: the plain version
 against the Pallas kernel run in interpret mode and against the pair-mask
-dense path (valid query rows), and the wrapper's input checks.  The CUDA
-kernel itself is held against the plain version in ``test_torch_gpu.py``."""
+dense path (valid query rows), both plain versions (forward and gradients)
+against ``_dense_ref`` at the Gaussian family's head widths, and the
+wrapper's input checks.  The CUDA kernel itself is held against the plain
+version in ``test_torch_gpu.py`` and ``test_torch_gaussian_gpu.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tts_with_diffusion_model_tpu.ops.attention import dense_attention
-from tts_with_diffusion_model_tpu.ops.flash_attention import _flash_impl
+from tts_with_diffusion_model_tpu.ops.flash_attention import _dense_ref, _flash_impl
 from tts_with_diffusion_model_tpu_torch.ops import attention as port_attention
 from tts_with_diffusion_model_tpu_torch.ops.masked_attention import (
     masked_attention,
     masked_attention_plain,
+)
+from tts_with_diffusion_model_tpu_torch.ops.train_flash_attention import (
+    train_flash_attention_plain,
 )
 
 from torch_port_helpers import t
@@ -41,6 +47,27 @@ def test_plain_matches_pallas_interpret(shape):
                                  jnp.asarray(km), interpret=True))
     got = masked_attention_plain(t(q), t(k), t(v), t(km)).numpy()
     np.testing.assert_allclose(got, ref, atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 32])
+def test_plain_versions_match_dense_ref_at_the_gaussian_head_widths(Dh):
+    """Both plain versions against JAX's ``_dense_ref`` (the reference of
+    the Pallas kernel's backward) at Tq, Tk across a 64-row tile edge, with
+    an all-masked row: the forward, and the training one's dq, dk, dv."""
+    q, k, v, km, _ = _inputs(B=3, Tq=65, Tk=63, H=2, Dh=Dh, seed=Dh)
+    km[2] = 0.0
+    do = np.random.RandomState(Dh + 1).randn(*q.shape).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a, b, c: _dense_ref(a, b, c, jnp.asarray(km)),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(do))
+    np.testing.assert_allclose(masked_attention_plain(t(q), t(k), t(v), t(km)).numpy(),
+                               np.asarray(ref), atol=FP32_TOL)
+    qg, kg, vg = (t(a).requires_grad_(True) for a in (q, k, v))
+    o = train_flash_attention_plain(qg, kg, vg, t(km), False)
+    (o * t(do)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref), atol=FP32_TOL)
+    for got, want in zip((qg.grad, kg.grad, vg.grad), ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
 def test_plain_matches_dense_pair_mask_on_valid_rows():

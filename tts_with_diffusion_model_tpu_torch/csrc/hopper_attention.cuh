@@ -1,29 +1,54 @@
 // Hopper (sm_90a) building blocks shared by csrc/masked_attention.cu and
 // csrc/train_flash_attention.cu, and the one forward mainloop both use.
+// Everything that depends on the head width is a template on DH, one of
+// 8, 16, 32 and 64 (Width<DH>); each width is its own instantiation.
 //
-// * Tensor maps: a 4-D TMA map over a (B, T, H, Dh=64) bf16 tensor, read as
-//   (Dh, H, T, B) innermost first with the caller's batch and time strides,
+// * Tensor maps: a 4-D TMA map over a (B, T, H, DH) bf16 tensor, read as
+//   (DH, H, T, B) innermost first with the caller's batch and time strides,
 //   so a strided view (the NAR's split of a fused qkv) is read in place.  A
-//   box is 64 x 1 x 64 x 1: 64 rows of one head, one 128-byte row each,
-//   stored with the 128-byte swizzle that wgmma reads.  Rows past T are
-//   zero-filled by the hardware.  cuTensorMapEncodeTiled is reached through
-//   cudaGetDriverEntryPoint, so the build needs no -lcuda.
+//   box is DH x 1 x 64 x 1: 64 rows of one head, one DH·2-byte row each,
+//   stored with the swizzle whose span is the row: 128-byte at DH 64,
+//   64-byte at 32, 32-byte at 16, none at 8 (16-byte rows, the smallest
+//   inner box TMA takes).  Rows past T are zero-filled by the hardware.
+//   cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
+//   the build needs no -lcuda.
 // * A full/empty mbarrier ring fed by one producer warp with TMA loads
 //   (cp.async.bulk.tensor ... mbarrier::complete_tx::bytes).
-// * wgmma m64n64k16 (bf16 in, fp32 accumulate): SS (both operands from
-//   shared memory) and RS (A from registers), shared-memory descriptors for
-//   K-major and MN-major (transposed) 64 x 64 tiles, fence / commit / wait.
+// * wgmma (bf16 in, fp32 accumulate): m64n64k16 SS (both operands from
+//   shared memory) for the products that reduce over the head width, and
+//   m64nDHk16 RS (A from registers) for those whose output is DH wide;
+//   shared-memory descriptors per swizzle mode for K-major and MN-major
+//   (transposed) 64-row tiles; fence / commit / wait.
 // * fwd_kernel: the forward mainloop (online softmax over 64-key tiles),
 //   instantiated by kernel 1 without the row log-sum-exp and causality and
 //   by kernel 2 with both.
 //
 // Fragment layout (PTX ISA, wgmma m64nN accumulator): in a warpgroup, warp w
 // owns rows 16w..16w+15; with g = lane / 4 and t = lane % 4, register
-// 4c + e holds row 16w + g + 8·(e / 2), column 8c + 2t + (e % 2).  An RS A
-// operand (m64k16) holds, for k-chunk kk, {A[r][16kk+2t..+1]},
-// {A[r+8][16kk+2t..]}, {A[r][16kk+8+2t..]}, {A[r+8][16kk+8+2t..]}: exactly
-// accumulator registers 8kk..8kk+7 packed in pairs, so a score tile turns
-// into the next product's A operand in registers.
+// 4c + e holds row 16w + g + 8·(e / 2), column 8c + 2t + (e % 2), so an
+// m64nN accumulator is N / 2 floats a thread.  An RS A operand (m64k16)
+// holds, for k-chunk kk, {A[r][16kk+2t..+1]}, {A[r+8][16kk+2t..]},
+// {A[r][16kk+8+2t..]}, {A[r+8][16kk+8+2t..]}: exactly accumulator
+// registers 8kk..8kk+7 of a 64-wide tile packed in pairs, so a score tile
+// turns into the next product's A operand in registers.
+//
+// Shared-memory layouts (CUTLASS's canonical GMMA layouts, cute/atom/
+// mma_traits_sm90_gmma.hpp, in 16-byte units; a tile's row pitch is DH·2
+// bytes, equal to its swizzle span, so 8 rows are one DH-unit group):
+// * K-major (the head width is the reduced dimension: Q, K, V, dO in S, dP,
+//   Sᵀ, dPᵀ): stride between 8-row groups SBO = DH; a k16 step starts 32
+//   bytes further into each row (DH / 16 steps).  Swizzled, the second
+//   8-column half of a k16 step lies inside the swizzle span and LBO is
+//   unused.  At DH 8 (no swizzle) the k16 step's upper half is the core
+//   matrix LBO further on: the descriptor points it at a zeroed 1 KB block
+//   laid out as a tile, so the reduction runs over 8 real columns and 8
+//   zeros on both operands (0 · 0 adds nothing; no uninitialised byte is
+//   read, which could hold an Inf and give 0 · Inf = NaN).
+// * MN-major (the 64 rows are the reduced dimension: V, dO, Q, K as the B
+//   operand of P·V, Pᵀ·dO, dSᵀ·Q, dS·K): a k16 step covers rows
+//   16kk..16kk+15, 16·DH·2 bytes on; its two 8-row groups are DH units
+//   apart: SBO when swizzled (N = DH fits one swizzle span, LBO unused),
+//   LBO without swizzle (DH 8: N is one core matrix, SBO unused).
 
 #pragma once
 
@@ -40,12 +65,40 @@ namespace hopper {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;                  // rows of a tile (queries or keys)
-constexpr int kDh = 64;                    // head width of this path
-constexpr int kTileBytes = kRows * kDh * 2;  // one 64 x 64 bf16 tile, 8 KB
-constexpr int kStages = 2;                 // depth of the backward's TMA rings
+// Depth of the backward's TMA rings: three stages, faster than two at every
+// width where the dK/dV and dQ kernels were timed (scripts/kernel_variants.py,
+// PERF.md).
+constexpr int kStages = 3;
 constexpr float kNegInf = -0.7f * FLT_MAX;  // the masked score (finite)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// What a head width fixes on this path.
+template <int DH>
+struct Width {
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "head width 8, 16, 32 or 64");
+  static constexpr int kTileBytes = kRows * DH * 2;  // one 64-row bf16 tile
+  // k16 steps over the head width (DH 8: one, its upper half zeros)
+  static constexpr int kSteps = DH < 16 ? 1 : DH / 16;
+  // bytes of the zeroed block a DH-8 k16 step reads as its upper half
+  static constexpr int kZeroBytes = DH == 8 ? kRows * 16 : 0;
+  // wgmma descriptor layout type (bits 62-63): 1 = 128B, 2 = 64B, 3 = 32B
+  // swizzle, 0 = none; the TMA map's swizzle is the same
+  static constexpr uint64_t kLayout = DH == 64 ? 1 : DH == 32 ? 2 : DH == 16 ? 3 : 0;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : DH == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+};
+
+// The route of a call, the one rule both launchers follow (and that
+// ops/route.tensor_core_route states in Python): bf16 at a head width of
+// 8, 16, 32 or 64 with every tensor TMA-aligned (tma_ok) runs on the
+// tensor cores; fp32, other widths and unaligned views on the SIMT kernels.
+inline bool tensor_core_route(int dtype, int Dh, bool aligned) {
+  return dtype == 1 && (Dh == 8 || Dh == 16 || Dh == 32 || Dh == 64) && aligned;
+}
 
 // ---------------------------------------------------------------- host side
 
@@ -87,8 +140,9 @@ inline bool tma_ok(const void* p, int n_b, long long sb, int n_t, long long st) 
          (n_t == 1 || st % 8 == 0);
 }
 
-// Map over a (B, T, H, 64) bf16 tensor with element strides sb, st (heads
+// Map over a (B, T, H, DH) bf16 tensor with element strides sb, st (heads
 // and head width dense).  Returns 0 or an error code.
+template <int DH>
 inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
                     long long sb, long long st) {
   EncodeTiledFn fn = encode_tiled();
@@ -103,23 +157,23 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
     return e != cudaSuccess ? e : cudaSetDevice(dev);
   }();
   if (ctx != cudaSuccess) return (int)ctx;
-  if (T == 1) st = (long long)H * kDh;  // unused; any legal stride
+  if (T == 1) st = (long long)H * DH;  // unused; any legal stride
   if (B == 1) sb = st * T;
-  const cuuint64_t dims[4] = {(cuuint64_t)kDh, (cuuint64_t)H, (cuuint64_t)T,
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kDh * 2, (cuuint64_t)st * 2,
+  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)st * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kDh, 1, kRows, 1};
+  const cuuint32_t box[4] = {DH, 1, kRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                    dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   Width<DH>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (rc == CUDA_SUCCESS) return 0;
   fprintf(stderr,
-          "cuTensorMapEncodeTiled failed (CUresult %d): base %p, dims (64, %d, %d, %d), "
+          "cuTensorMapEncodeTiled failed (CUresult %d): base %p, dims (%d, %d, %d, %d), "
           "byte strides (%llu, %llu, %llu)\n",
-          (int)rc, base, H, T, B, (unsigned long long)strides[0],
+          (int)rc, base, DH, H, T, B, (unsigned long long)strides[0],
           (unsigned long long)strides[1], (unsigned long long)strides[2]);
   return kErrEncode;
 }
@@ -131,6 +185,8 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
 // registers a thread in the forward, so an SM holds three or four
 // independent blocks whose softmax and products interleave, where a
 // two-warpgroup block holds the SM alone (PERF.md, PR 6).
+// Narrower heads keep the same shape: the accumulators shrink with DH and
+// the grids of the Gaussian sites (a few hundred blocks) fit in one wave.
 
 // ---------------------------------------------------------------- device side
 
@@ -180,8 +236,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One 64-row x 64-wide box of head h, rows t0.., batch b into `dst`
-// (1024-byte aligned); completion counts bytes on `bar`.
+// One 64-row box of head h, rows t0.., batch b into `dst` (1024-byte
+// aligned); completion counts bytes on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int h, int t0, int b) {
   asm volatile(
@@ -197,20 +253,38 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
-// wgmma shared-memory descriptors of a 64 x 64 bf16 tile written by TMA
-// with the 128-byte swizzle (8-row groups of 1024 bytes; layout type 1).
-// K-major (the reduced dimension is the tile's contiguous width): the
-// k16 step kk starts 32·kk bytes into each row.  MN-major (the reduced
-// dimension runs over the tile's rows, wgmma's transpose flag): step kk
-// covers rows 16kk..16kk+15, two 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
-  const uint32_t a = smem_addr(tile) + 32u * kk;
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+// Zero the DH-8 k16 steps' upper-half block (no-op at other widths) with
+// the block's threads, then make the writes visible to wgmma's reads (the
+// async proxy).  Call before the block's first __syncthreads.
+template <int DH>
+__device__ __forceinline__ void zero_block(uint8_t* zero) {
+  if constexpr (Width<DH>::kZeroBytes > 0) {
+    for (int i = threadIdx.x; i < Width<DH>::kZeroBytes / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(zero)[i] = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
 }
 
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint64_t lbo, uint64_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (layout << 62);
+}
+
+// K-major descriptor of k16 step kk of a 64-row tile (the reduced dimension
+// is the tile's contiguous head width); `zero` is the DH-8 upper half.
+template <int DH>
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk, const void* zero) {
+  const uint32_t a = smem_addr(tile) + 32u * kk;
+  const uint64_t lbo = DH == 8 ? (uint64_t)((smem_addr(zero) - smem_addr(tile)) >> 4) : 1;
+  return make_desc(a, lbo, DH, Width<DH>::kLayout);
+}
+
+// MN-major descriptor of k16 step kk (rows 16kk..16kk+15 of the tile read
+// transposed, wgmma's transpose flag).
+template <int DH>
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
-  const uint32_t a = smem_addr(tile) + 2048u * kk;
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  const uint32_t a = smem_addr(tile) + 32u * DH * kk;
+  return make_desc(a, DH == 8 ? DH : 1, DH, Width<DH>::kLayout);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,20 +300,27 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Tell the compiler the registers change here (after a wait), so no read
 // of an asynchronously written accumulator is hoisted above it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define HA_ACC32(d)                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+#define HA_ACC4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define HA_ACC8(d) HA_ACC4(d), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define HA_ACC16(d)                                                          \
+  HA_ACC8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HA_ACC32(d)                                                           \
+  HA_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),        \
+      "+f"(d[30]), "+f"(d[31])
 
+#define HA_REGS4 "{%0, %1, %2, %3}"
+#define HA_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HA_REGS16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HA_REGS32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -258,32 +339,47 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// D (+)= A · B with A from registers (four packed bf16 pairs per thread).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+// D (64 x N) (+)= A · B with A from registers (four packed bf16 pairs per
+// thread), B (16 x N) from shared memory; N/2 accumulators a thread.
+#define HA_WGMMA_RS(N, REGS, ACC, A0, A1, A2, A3, DB, P, T)                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " REGS \
+               ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB               \
+               ", p, 1, 1, %" #T ";\n}\n"                                      \
+               : ACC(d)                                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),          \
+                 "r"(accumulate), "n"(TB))
+
+template <int TB, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HA_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : HA_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(TB));
+  if constexpr (N == 8)
+    HA_WGMMA_RS(8, HA_REGS4, HA_ACC4, 4, 5, 6, 7, 8, 9, 10);
+  else if constexpr (N == 16)
+    HA_WGMMA_RS(16, HA_REGS8, HA_ACC8, 8, 9, 10, 11, 12, 13, 14);
+  else if constexpr (N == 32)
+    HA_WGMMA_RS(32, HA_REGS16, HA_ACC16, 16, 17, 18, 19, 20, 21, 22);
+  else
+    HA_WGMMA_RS(64, HA_REGS32, HA_ACC32, 32, 33, 34, 35, 36, 37, 38);
 }
 
-// D = A · Bᵀ over the full width 64 (four k16 steps), both tiles K-major.
-__device__ __forceinline__ void gemm_abt(float (&d)[32], const void* a, const void* b) {
+// D (64 x 64) = A · Bᵀ over the head width (DH / 16 k16 steps; at DH 8 one
+// step whose upper half is the zero block), both tiles K-major.
+template <int DH>
+__device__ __forceinline__ void gemm_abt(float (&d)[32], const void* a, const void* b,
+                                         const void* zero) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<0, 0>(d, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
+  for (int kk = 0; kk < Width<DH>::kSteps; ++kk)
+    wgmma_ss<0, 0>(d, desc_kmajor<DH>(a, kk, zero), desc_kmajor<DH>(b, kk, zero), kk > 0);
 }
 
-// D += P · B over 64 rows of B (four k16 steps), P from registers, B read
-// transposed (MN-major) from its tile.
-__device__ __forceinline__ void gemm_pb(float (&d)[32], const uint32_t (&p)[4][4],
+// D (64 x DH) += P · B over 64 rows of B (four k16 steps), P from
+// registers, B read transposed (MN-major) from its tile.
+template <int DH>
+__device__ __forceinline__ void gemm_pb(float (&d)[DH / 2], const uint32_t (&p)[4][4],
                                         const void* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(d, p[kk], desc_mnmajor(b, kk), 1);
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1, DH>(d, p[kk], desc_mnmajor<DH>(b, kk), 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -315,42 +411,53 @@ __device__ __forceinline__ int first_valid_key(const float* mask_b, int Tk, int 
 
 struct FwdParams {
   const float* mask;  // (B, Tk), > 0 = valid key
-  bf16* o;            // (B, Tq, H, 64), strides o_sb, o_st
+  bf16* o;            // (B, Tq, H, DH), strides o_sb, o_st
   float* lse;         // (B, H, Tq) natural-log row log-sum-exp, or null
   long long o_sb, o_st;
   int Tq, Tk, H, causal;
-  float scale_log2;   // Dh^-0.5 · log2(e)
+  float scale_log2;   // DH^-0.5 · log2(e)
 };
 
 // The forward keeps three K/V stages: the tile whose P·V is in flight, the
-// tile being scored, and the one being loaded.
+// tile being scored, and the one being loaded.  At DH <= 32 the smaller
+// tiles leave room for a deeper ring or more blocks per SM; timed at the
+// Gaussian and D3PM sites (scripts/kernel_variants.py, PERF.md), a fourth
+// stage gains nothing (a block walks at most 7 key tiles, and its chain of
+// S, softmax and P·V, not the loads, sets its time), two stages are slower,
+// and a bound of four blocks per SM is slower at DH 32 and 64.
 constexpr int kFwdStages = 3;
 
-constexpr int kFwdSmemBytes =
-    1024 + (1 + 2 * kFwdStages) * kTileBytes + kFwdStages * (kRows + 2) * 4 + (2 * kFwdStages + 1) * 8;
+template <int DH>
+constexpr int fwd_smem_bytes() {
+  return 1024 + (1 + 2 * kFwdStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         kFwdStages * (kRows + 2) * 4 + (2 * kFwdStages + 1) * 8;
+}
 
 // One block per (query tile of 64 rows, head, batch): one consumer
 // warpgroup (warps 0..3) and one producer warp (warp 4).  The producer
 // loads the block's Q tile once and streams K/V tiles with
 // their key flags through the ring; each consumer computes S = Q·Kᵀ (SS),
 // the online softmax in registers (exp2 of scores pre-scaled by
-// Dh^-0.5·log2 e), and O += P·V (RS, P in bf16 from registers, V read
-// transposed).  S of tile kt and P·V of tile kt-1 are issued together, and
-// the softmax of tile kt runs while P·V is in flight (FlashAttention-3's
-// intra-warpgroup overlap); O is rescaled before the next P·V is issued.
-// At least three blocks per SM (at most 136 registers a thread).
-template <bool kLse>
+// DH^-0.5·log2 e), and O += P·V (RS, P in bf16 from registers, V read
+// transposed; m64nDHk16, DH / 2 accumulators a thread).  S of tile kt and
+// P·V of tile kt-1 are issued together, and the softmax of tile kt runs
+// while P·V is in flight (FlashAttention-3's intra-warpgroup overlap); O is
+// rescaled before the next P·V is issued.  At least three blocks per SM
+// (at most 136 registers a thread at DH 64, fewer below).
+template <bool kLse, int DH>
 __global__ void __launch_bounds__(160, 3)
 fwd_kernel(const __grid_constant__ CUtensorMap map_q,
            const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
   constexpr int S = kFwdStages;
+  constexpr int kTile = Width<DH>::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* qs = base;
-  uint8_t* ks = qs + kTileBytes;
-  uint8_t* vs = ks + S * kTileBytes;
-  float* flag = reinterpret_cast<float*>(vs + S * kTileBytes);
+  uint8_t* ks = qs + kTile;
+  uint8_t* vs = ks + S * kTile;
+  uint8_t* zero = vs + S * kTile;  // DH 8 only
+  float* flag = reinterpret_cast<float*>(zero + Width<DH>::kZeroBytes);
   float* plain = flag + S * kRows;  // per stage: 1 when every key is valid
   uint64_t* full = reinterpret_cast<uint64_t*>(plain + S + (S & 1));
   uint64_t* empty = full + S;
@@ -370,6 +477,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if (q0 >= first_valid_key(mask_b, p.Tk, lane)) n_kt = min(n_kt, q_last / kRows + 1);
   }
 
+  zero_block<DH>(zero);
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 32);
@@ -385,7 +493,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       prefetch_map(&map_q);
       prefetch_map(&map_k);
       prefetch_map(&map_v);
-      mbar_arrive_tx(qbar, kTileBytes);
+      mbar_arrive_tx(qbar, kTile);
       tma_load(qs, &map_q, qbar, h, q0, b);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
@@ -404,9 +512,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       valid = __all_sync(0xffffffffu, valid);
       if (lane == 0) {
         plain[s] = valid ? 1.f : 0.f;
-        mbar_arrive_tx(&full[s], 2 * kTileBytes);
-        tma_load(ks + s * kTileBytes, &map_k, &full[s], h, kt * kRows, b);
-        tma_load(vs + s * kTileBytes, &map_v, &full[s], h, kt * kRows, b);
+        mbar_arrive_tx(&full[s], 2 * kTile);
+        tma_load(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
+        tma_load(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -419,9 +527,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint8_t* q_tile = qs;
   const float sl2 = p.scale_log2;
 
-  float o[32], sc[32];
+  constexpr int NO = DH / 2;  // output accumulators a thread
+  float o[NO], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, c0 = 0.f, c1 = 0.f;
   uint32_t pa[4][4];  // P of the last scored tile, bf16 (p.astype(v.dtype))
 
@@ -504,7 +613,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   };
   auto rescale_o = [&]() {
 #pragma unroll
-    for (int i = 0; i < 32; i += 4) {
+    for (int i = 0; i < NO; i += 4) {
       o[i] *= c0;
       o[i + 1] *= c0;
       o[i + 2] *= c1;
@@ -515,7 +624,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(qbar, 0);
   mbar_wait(&full[0], 0);
   wgmma_fence();
-  gemm_abt(sc, q_tile, ks);
+  gemm_abt<DH>(sc, q_tile, ks, zero);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -529,9 +638,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(&full[s], (kt / S) & 1);
     rescale_o();
     wgmma_fence();
-    gemm_abt(sc, q_tile, ks + s * kTileBytes);
+    gemm_abt<DH>(sc, q_tile, ks + s * kTile, zero);
     wgmma_commit();
-    gemm_pb(o, pa, vs + sp * kTileBytes);
+    gemm_pb<DH>(o, pa, vs + sp * kTile);
     wgmma_commit();
     wgmma_wait<1>();  // S of tile kt
     fence_regs(sc);
@@ -543,7 +652,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   rescale_o();
   wgmma_fence();
-  gemm_pb(o, pa, vs + ((n_kt - 1) % S) * kTileBytes);
+  gemm_pb<DH>(o, pa, vs + ((n_kt - 1) % S) * kTile);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -554,9 +663,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
-  bf16* ob = p.o + (long long)b * p.o_sb + h * kDh;
+  bf16* ob = p.o + (long long)b * p.o_sb + h * DH;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
     if (r0 < p.Tq)
       *reinterpret_cast<uint32_t*>(ob + (long long)r0 * p.o_st + col) =
@@ -580,27 +689,47 @@ inline int set_smem(Kernel kernel, int bytes) {
                                    bytes);
 }
 
-// The forward on the Hopper path: q (B, Tq, H, 64), k, v (B, Tk, H, 64)
+// The forward on the Hopper path: q (B, Tq, H, DH), k, v (B, Tk, H, DH)
 // bf16 with element strides; o written with its strides; lse (B, H, Tq)
 // when kLse.  Returns 0 when launched, else an error code.
-template <bool kLse>
+template <bool kLse, int DH>
 inline int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                       void* o, float* lse, long long q_sb, long long q_st,
                       long long k_sb, long long k_st, long long v_sb, long long v_st,
                       long long o_sb, long long o_st, int B, int Tq, int Tk, int H,
                       int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = make_map(&mq, q, B, Tq, H, q_sb, q_st);
-  if (rc == 0) rc = make_map(&mk, k, B, Tk, H, k_sb, k_st);
-  if (rc == 0) rc = make_map(&mv, v, B, Tk, H, v_sb, v_st);
+  int rc = make_map<DH>(&mq, q, B, Tq, H, q_sb, q_st);
+  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, k_sb, k_st);
+  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, v_sb, v_st);
   if (rc != 0) return rc;
   FwdParams p{mask, static_cast<bf16*>(o), lse, o_sb, o_st, Tq, Tk, H, causal,
-              kLog2e / sqrtf((float)kDh)};
-  static const int attr = set_smem(fwd_kernel<kLse>, kFwdSmemBytes);
+              kLog2e / sqrtf((float)DH)};
+  constexpr int smem = fwd_smem_bytes<DH>();
+  static const int attr = set_smem(fwd_kernel<kLse, DH>, smem);
   if (attr != 0) return attr;
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  fwd_kernel<kLse><<<grid, 160, kFwdSmemBytes, stream>>>(mq, mk, mv, p);
+  fwd_kernel<kLse, DH><<<grid, 160, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
+}
+
+// launch_fwd at the head width Dh (8, 16, 32 or 64; the caller checked).
+template <bool kLse>
+inline int launch_fwd_at(int Dh, const void* q, const void* k, const void* v,
+                         const float* mask, void* o, float* lse, long long q_sb,
+                         long long q_st, long long k_sb, long long k_st, long long v_sb,
+                         long long v_st, long long o_sb, long long o_st, int B, int Tq,
+                         int Tk, int H, int causal, cudaStream_t stream) {
+#define HA_FWD(DH)                                                                     \
+  launch_fwd<kLse, DH>(q, k, v, mask, o, lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, \
+                       o_st, B, Tq, Tk, H, causal, stream)
+  switch (Dh) {
+    case 8: return HA_FWD(8);
+    case 16: return HA_FWD(16);
+    case 32: return HA_FWD(32);
+    default: return HA_FWD(64);
+  }
+#undef HA_FWD
 }
 
 }  // namespace hopper

@@ -22,20 +22,22 @@
 // of device memory (online softmax in registers over 64-key tiles), and
 // needs no second pass or workspace: each attention is one launch.
 //
-// The bf16, Dh = 64, 16-byte aligned path (every call of the serving path)
-// is the forward mainloop of csrc/hopper_attention.cuh, shared with the
-// training kernel's forward (here without the log-sum-exp and causality).
-// Against what held the mma.sync version back:
+// The bf16 path at head widths 8, 16, 32 and 64 with 16-byte aligned views
+// (every call of the serving paths, the Gaussian family's included) is the
+// forward mainloop of csrc/hopper_attention.cuh, one instantiation per
+// width, shared with the training kernel's forward (here without the
+// log-sum-exp and causality).  Against what held the mma.sync version back:
 //  1. loads: a producer warp keeps a 3-stage ring of K/V tiles filled by
 //     TMA (full/empty mbarriers), so loads run under the products; Q is
 //     loaded once per block;
-//  2. transposed V: V lands in shared memory with the 128-byte swizzle and
-//     wgmma reads it transposed through an MN-major descriptor -- no scalar
-//     16-bit loads or packing by hand;
-//  3. products: S = Q·Kᵀ (both from shared memory) and O += P·V (P in bf16
-//     straight from the score accumulators) are warpgroup wgmma m64n64k16;
-//     S of tile k goes out with P·V of tile k-1, and the softmax of tile k
-//     runs under that P·V;
+//  2. transposed V: V lands in shared memory with the swizzle of its row
+//     width and wgmma reads it transposed through an MN-major descriptor --
+//     no scalar 16-bit loads or packing by hand;
+//  3. products: S = Q·Kᵀ (both from shared memory, m64n64k16 over Dh / 16
+//     k-steps; Dh 8 pads its one step with a zeroed block) and O += P·V (P
+//     in bf16 straight from the score accumulators, m64nDhk16) are
+//     warpgroup wgmma; S of tile k goes out with P·V of tile k-1, and the
+//     softmax of tile k runs under that P·V;
 //  4. exponents: one multiply by Dh^-0.5·log2 e and exp2f per score;
 //  5. causality: none here (kernel 1 is never causal);
 //  6. no D pass (forward only).
@@ -44,8 +46,10 @@
 // measured slower at every serving shape, the NAR's included.
 // Everything else (fp32, other head widths, unaligned views): one thread
 // per query row on the CUDA cores in fp32, q and the output accumulators in
-// registers, K/V tiles read from shared memory as broadcasts.  fp32 inputs
-// take this path so that they are summed in fp32 throughout.
+// registers, K/V tiles read from shared memory as broadcasts, each held at
+// the head width rounded up to 8, 16, 32 or 64 (DW).  fp32 inputs take this
+// path so that they are summed in fp32 throughout.  hopper::tensor_core_route
+// is the rule between the two; the launcher reports the route it took.
 // Still left: warp-specialised ping-pong between two consumer warpgroups
 // and a persistent schedule over the (tile, head, batch) grid.
 //
@@ -66,7 +70,7 @@ namespace {
 constexpr int kQTile = 64;   // query rows per block, one per thread
 constexpr int kKTile = 64;   // keys staged in shared memory per step
 constexpr int kSub = 16;     // keys scored per online-softmax update
-constexpr int kDhMax = 64;   // head width held in registers (Dh <= 64)
+constexpr int kDhMax = 64;   // widest head
 constexpr float kNegInf = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -84,7 +88,8 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <typename T>
+// DW: the head width Dh rounded up to 8, 16, 32 or 64 (columns past Dh are 0).
+template <typename T, int DW>
 __global__ void __launch_bounds__(kQTile)
 masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -92,8 +97,8 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int q_sb, int q_st, int k_sb, int k_st, int v_sb,
                         int v_st, int o_sb, int o_st, int Tq, int Tk, int Dh,
                         float scale) {
-  __shared__ __align__(16) float ks[kKTile][kDhMax];
-  __shared__ __align__(16) float vs[kKTile][kDhMax];
+  __shared__ __align__(16) float ks[kKTile][DW];
+  __shared__ __align__(16) float vs[kKTile][DW];
   __shared__ float bias[kKTile];
 
   const int b = blockIdx.z;
@@ -102,15 +107,15 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = row < Tq;
 
   // q row in registers, zero-padded past Dh and pre-scaled.
-  float qr[kDhMax];
+  float qr[DW];
   const T* qp = q + (long long)b * q_sb + (long long)row * q_st + h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d)
+  for (int d = 0; d < DW; ++d)
     qr[d] = (live && d < Dh) ? to_float(qp[d]) * scale : 0.f;
 
-  float acc[kDhMax];
+  float acc[DW];
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DW; ++d) acc[d] = 0.f;
   float m = -INFINITY;  // running max (true -inf only before the first key)
   float l = 0.f;        // running sum of exp
 
@@ -120,8 +125,8 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < Tk; j0 += kKTile) {
     __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < kKTile * kDhMax; idx += kQTile) {
-      const int j = idx / kDhMax, d = idx % kDhMax;
+    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kQTile) {
+      const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * v_st + d]) : 0.f;
@@ -144,7 +149,7 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj]);
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+        for (int d4 = 0; d4 < DW / 4; ++d4) {
           const float4 kv4 = kr[d4];
           dot += qr[4 * d4] * kv4.x + qr[4 * d4 + 1] * kv4.y +
                  qr[4 * d4 + 2] * kv4.z + qr[4 * d4 + 3] * kv4.w;
@@ -157,7 +162,7 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m - m_new);  // 0 on the first sub-tile
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < kDhMax; ++d) acc[d] *= corr;
+      for (int d = 0; d < DW; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const float p = expf(s[jj] - m_new);
@@ -165,7 +170,7 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float pr = round_like(p, q);
         const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj]);
 #pragma unroll
-        for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+        for (int d4 = 0; d4 < DW / 4; ++d4) {
           const float4 vv = vr[d4];
           acc[4 * d4] += pr * vv.x;
           acc[4 * d4 + 1] += pr * vv.y;
@@ -181,8 +186,23 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = 1.f / l;
   T* op = o + (long long)b * o_sb + (long long)row * o_st + h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d)
+  for (int d = 0; d < DW; ++d)
     if (d < Dh) store(op + d, acc[d] * inv);
+}
+
+// the SIMT kernels' register width for head width Dh
+inline int simt_width(int Dh) { return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 64; }
+
+template <typename T, int DW>
+int launch_at(const void* q, const void* k, const void* v, const float* mask, void* o,
+              int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st, int o_sb, int o_st,
+              int B, int Tq, int Tk, int H, int Dh, cudaStream_t stream) {
+  const dim3 grid((Tq + kQTile - 1) / kQTile, H, B);
+  masked_attention_kernel<T, DW><<<grid, kQTile, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<T*>(o), q_sb, q_st, k_sb,
+      k_st, v_sb, v_st, o_sb, o_st, Tq, Tk, Dh, rsqrtf((float)Dh));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -190,12 +210,32 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
            void* o, int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st,
            int o_sb, int o_st, int B, int Tq, int Tk, int H, int Dh,
            cudaStream_t stream) {
-  const dim3 grid((Tq + kQTile - 1) / kQTile, H, B);
-  masked_attention_kernel<T><<<grid, kQTile, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), q_sb, q_st, k_sb,
-      k_st, v_sb, v_st, o_sb, o_st, Tq, Tk, Dh, rsqrtf((float)Dh));
-  return (int)cudaGetLastError();
+#define MA_SIMT(DW) \
+  launch_at<T, DW>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, \
+                   Tk, H, Dh, stream)
+  switch (simt_width(Dh)) {
+    case 8: return MA_SIMT(8);
+    case 16: return MA_SIMT(16);
+    case 32: return MA_SIMT(32);
+    default: return MA_SIMT(64);
+  }
+#undef MA_SIMT
+}
+
+bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
+  return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 && Dh >= 1 &&
+         Dh <= kDhMax && Dh % 8 == 0 && (dtype == 0 || dtype == 1);
+}
+
+// The launcher's route: 1 = tensor cores (hopper::launch_fwd), 0 = SIMT.
+bool route(const void* q, const void* k, const void* v, const void* o, int q_sb, int q_st,
+           int k_sb, int k_st, int v_sb, int v_st, int o_sb, int o_st, int B, int Tq, int Tk,
+           int Dh, int dtype) {
+  using hopper::tma_ok;
+  return hopper::tensor_core_route(
+      dtype, Dh,
+      tma_ok(q, B, q_sb, Tq, q_st) && tma_ok(k, B, k_sb, Tk, k_st) &&
+          tma_ok(v, B, v_sb, Tk, v_st) && tma_ok(o, B, o_sb, Tq, o_st));
 }
 
 }  // namespace
@@ -204,28 +244,26 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 // stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launch (0 = launched), -1 when the
 // arguments are outside what the kernel takes, or another nonzero code
-// when a TMA tensor map cannot be encoded.
+// when a TMA tensor map cannot be encoded.  *route_out (when not null) is
+// set to the route taken: 1 = tensor cores, 0 = SIMT.
 extern "C" int masked_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* kv_mask,
                                     void* o, int q_sb, int q_st, int k_sb,
                                     int k_st, int v_sb, int v_st, int o_sb,
                                     int o_st, int B, int Tq, int Tk, int H,
-                                    int Dh, int dtype, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || H > 65535 || B > 65535 ||
-      Dh < 1 || Dh > kDhMax || Dh % 8 != 0)
-    return -1;
+                                    int Dh, int dtype, void* stream, int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
   const float* mask = static_cast<const float*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = route(q, k, v, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, Tk,
+                        Dh, dtype);
+  if (route_out != nullptr) *route_out = tc ? 1 : 0;
+  if (tc)
+    return hopper::launch_fwd_at<false>(Dh, q, k, v, mask, o, nullptr, q_sb, q_st, k_sb, k_st,
+                                        v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, 0, s);
   if (dtype == 0)
     return launch<float>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st, v_sb, v_st,
                          o_sb, o_st, B, Tq, Tk, H, Dh, s);
-  if (dtype == 1 && Dh == hopper::kDh && hopper::tma_ok(q, B, q_sb, Tq, q_st) &&
-      hopper::tma_ok(k, B, k_sb, Tk, k_st) && hopper::tma_ok(v, B, v_sb, Tk, v_st) &&
-      hopper::tma_ok(o, B, o_sb, Tq, o_st))
-    return hopper::launch_fwd<false>(q, k, v, mask, o, nullptr, q_sb, q_st, k_sb, k_st,
-                                     v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, 0, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st,
-                                 v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, Dh, s);
-  return -1;
+  return launch<__nv_bfloat16>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st,
+                               v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, Dh, s);
 }

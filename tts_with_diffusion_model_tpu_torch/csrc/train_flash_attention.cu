@@ -35,18 +35,21 @@
 // probabilities never reach device memory (the only scratch is L and D, 8
 // bytes per query row).
 //
-// The bf16, Dh = 64, 16-byte aligned path (every call of the training
-// path) is built from csrc/hopper_attention.cuh; against what held the
-// mma.sync version back:
+// The bf16 path at head widths 8, 16, 32 and 64 with 16-byte aligned views
+// (every call of the training paths, the Gaussian family's included) is
+// built from csrc/hopper_attention.cuh, one instantiation per width; against
+// what held the mma.sync version back:
 //  1. loads: each block has a producer warp that keeps a ring of 64-row
 //     tiles filled by TMA (3 stages in the forward, 2 in the backward),
 //     full/empty mbarriers in between, so the next tile's load runs under
 //     the current tile's products;
 //  2. transposed operands: the tiles land in shared memory with the
-//     128-byte swizzle and wgmma reads V, dO, Q and K transposed through
-//     MN-major descriptors -- no scalar 16-bit loads, no packing by hand;
-//  3. products: every product is a warpgroup wgmma m64n64k16 (S, dP, Sᵀ,
-//     dPᵀ from shared memory; P·V, Pᵀ·dO, dSᵀ·Q, dS·K with P or dS in
+//     swizzle of their row width and wgmma reads V, dO, Q and K transposed
+//     through MN-major descriptors -- no scalar 16-bit loads, no packing by
+//     hand;
+//  3. products: every product is a warpgroup wgmma (S, dP, Sᵀ, dPᵀ
+//     m64n64k16 from shared memory over Dh / 16 k-steps, Dh 8 padded with a
+//     zeroed block; P·V, Pᵀ·dO, dSᵀ·Q, dS·K m64nDhk16 with P or dS in
 //     registers, straight from the score accumulators); the forward issues
 //     S of tile k with P·V of tile k-1 and runs the softmax of tile k under
 //     that P·V (one consumer warpgroup per block, three or four blocks per
@@ -65,7 +68,9 @@
 //  6. D pass: 8 threads per row with 16-byte loads, 4 rows per warp.
 // Other inputs (fp32, other head widths, unaligned views) take SIMT kernels:
 // one thread per query row (forward, dQ) or per key (dK/dV) on the CUDA
-// cores in fp32.
+// cores in fp32, rows held at Dh rounded up to 8, 16, 32 or 64.
+// hopper::tensor_core_route is the rule between the two; each launcher
+// reports the route it took.
 // Still left: warp-specialised ping-pong between two consumer warpgroups
 // (one's softmax under the other's products) and a persistent schedule
 // over the (tile, head, batch) grid.
@@ -84,12 +89,11 @@
 
 namespace {
 
-constexpr int kDhMax = 64;    // head width held in registers (Dh <= 64)
+constexpr int kDhMax = 64;    // widest head
 constexpr int kRows = 64;     // query rows (forward, dQ) or keys (dK/dV) per block
 constexpr int kKTile = 64;    // keys staged in shared memory per step
 constexpr int kSub = 16;      // keys scored per online-softmax update
 constexpr int kQTileB = 16;   // query rows staged per step of the dK/dV loop
-constexpr int kPad = kDhMax + 1;  // padded shared row: own-row reads hit 32 banks
 constexpr float kNegInf = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -116,30 +120,33 @@ __device__ __forceinline__ float key_flag(const float* mb, int j, int Tk) {
 }
 
 // ---------------------------------------------------------------------------
+// The SIMT kernels hold a row at DW, the head width Dh rounded up to 8, 16,
+// 32 or 64 (columns past Dh are 0).
+//
 // Forward, CUDA cores: one thread per query row.
 
-template <typename T>
+template <typename T, int DW>
 __global__ void __launch_bounds__(kRows)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ kv_mask,
            T* __restrict__ o, float* __restrict__ lse, Strides st, int Tq,
            int Tk, int H, int Dh, int causal, float scale) {
-  __shared__ __align__(16) float ks[kKTile][kDhMax];
-  __shared__ __align__(16) float vs[kKTile][kDhMax];
+  __shared__ __align__(16) float ks[kKTile][DW];
+  __shared__ __align__(16) float vs[kKTile][DW];
   __shared__ float flag[kKTile];
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * kRows + threadIdx.x;
   const bool live = row < Tq;
 
-  float qr[kDhMax];
+  float qr[DW];
   const T* qp = q + (long long)b * st.q_sb + (long long)row * st.q_st + h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d)
+  for (int d = 0; d < DW; ++d)
     qr[d] = (live && d < Dh) ? to_float(qp[d]) * scale : 0.f;
-  float acc[kDhMax];
+  float acc[DW];
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DW; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   const T* kb = k + (long long)b * st.k_sb + h * Dh;
@@ -148,8 +155,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < Tk; j0 += kKTile) {
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kKTile * kDhMax; idx += kRows) {
-      const int j = idx / kDhMax, d = idx % kDhMax;
+    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kRows) {
+      const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * st.k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * st.v_st + d]) : 0.f;
@@ -166,7 +173,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj]);
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+        for (int d4 = 0; d4 < DW / 4; ++d4) {
           const float4 k4 = kr[d4];
           dot += qr[4 * d4] * k4.x + qr[4 * d4 + 1] * k4.y +
                  qr[4 * d4 + 2] * k4.z + qr[4 * d4 + 3] * k4.w;
@@ -181,7 +188,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m - m_new);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < kDhMax; ++d) acc[d] *= corr;
+      for (int d = 0; d < DW; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const float p = expf(s[jj] - m_new);
@@ -189,7 +196,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float pr = round_like(p, q);
         const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj]);
 #pragma unroll
-        for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+        for (int d4 = 0; d4 < DW / 4; ++d4) {
           const float4 v4 = vr[d4];
           acc[4 * d4] += pr * v4.x;
           acc[4 * d4 + 1] += pr * v4.y;
@@ -205,7 +212,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = 1.f / l;
   T* op = o + (long long)b * st.o_sb + (long long)row * st.o_st + h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d)
+  for (int d = 0; d < DW; ++d)
     if (d < Dh) store(op + d, acc[d] * inv);
   lse[((long long)b * H + h) * Tq + row] = m + logf(l);
 }
@@ -236,7 +243,7 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 }
 
 // dK, dV: one thread per key; q / dO rows staged kQTileB at a time.
-template <typename T>
+template <typename T, int DW>
 __global__ void __launch_bounds__(kRows)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ kv_mask,
@@ -244,10 +251,10 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, Strides st, int do_sb, int do_st, int Tq,
                 int Tk, int H, int Dh, int causal, float scale) {
-  __shared__ float ksm[kRows][kPad];
-  __shared__ float vsm[kRows][kPad];
-  __shared__ __align__(16) float qs[kQTileB][kDhMax];
-  __shared__ __align__(16) float dos[kQTileB][kDhMax];
+  __shared__ float ksm[kRows][DW + 1];
+  __shared__ float vsm[kRows][DW + 1];
+  __shared__ __align__(16) float qs[kQTileB][DW];
+  __shared__ __align__(16) float dos[kQTileB][DW];
   __shared__ float ls[kQTileB], ds_[kQTileB];
 
   const int b = blockIdx.z, h = blockIdx.y;
@@ -259,24 +266,24 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv_tk = 1.f / (float)Tk;
 
   // this block's K and V rows, fp32, zero-padded past Dh
-  for (int idx = tid; idx < kRows * kDhMax; idx += kRows) {
-    const int r = idx / kDhMax, d = idx % kDhMax;
+  for (int idx = tid; idx < kRows * DW; idx += kRows) {
+    const int r = idx / DW, d = idx % DW;
     const int jr = blockIdx.x * kRows + r;
     const bool in = jr < Tk && d < Dh;
     ksm[r][d] = in ? to_float(k[(long long)b * st.k_sb + (long long)jr * st.k_st + h * Dh + d]) : 0.f;
     vsm[r][d] = in ? to_float(v[(long long)b * st.v_sb + (long long)jr * st.v_st + h * Dh + d]) : 0.f;
   }
 
-  float dka[kDhMax], dva[kDhMax];
+  float dka[DW], dva[DW];
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d) dka[d] = dva[d] = 0.f;
+  for (int d = 0; d < DW; ++d) dka[d] = dva[d] = 0.f;
 
   const float* lb = lse + ((long long)b * H + h) * Tq;
   const float* db = delta + ((long long)b * H + h) * Tq;
   for (int i0 = 0; i0 < Tq; i0 += kQTileB) {
     __syncthreads();
-    for (int idx = tid; idx < kQTileB * kDhMax; idx += kRows) {
-      const int r = idx / kDhMax, d = idx % kDhMax;
+    for (int idx = tid; idx < kQTileB * DW; idx += kRows) {
+      const int r = idx / DW, d = idx % DW;
       const int ir = i0 + r;
       const bool in = ir < Tq && d < Dh;
       qs[r][d] = in ? to_float(q[(long long)b * st.q_sb + (long long)ir * st.q_st + h * Dh + d]) : 0.f;
@@ -298,7 +305,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (Li == kNegInf) {  // all keys masked: uniform P, no dS
         const float pr = round_like(inv_tk, q);
 #pragma unroll
-        for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+        for (int d4 = 0; d4 < DW / 4; ++d4) {
           const float4 g4 = do4[d4];
           dva[4 * d4] += pr * g4.x;
           dva[4 * d4 + 1] += pr * g4.y;
@@ -310,7 +317,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!valid || (causal && j > i)) continue;  // P = 0, dS = 0
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+      for (int d4 = 0; d4 < DW / 4; ++d4) {
         const float4 a = q4[d4], g4 = do4[d4];
         dot += a.x * ksm[tid][4 * d4] + a.y * ksm[tid][4 * d4 + 1] +
                a.z * ksm[tid][4 * d4 + 2] + a.w * ksm[tid][4 * d4 + 3];
@@ -321,7 +328,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pr = round_like(p, q);
       const float dsv = p * (dpv - ds_[r]);
 #pragma unroll
-      for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+      for (int d4 = 0; d4 < DW / 4; ++d4) {
         const float4 a = q4[d4], g4 = do4[d4];
         dva[4 * d4] += pr * g4.x;
         dva[4 * d4 + 1] += pr * g4.y;
@@ -338,7 +345,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // dK, dV are dense (B, Tk, H, Dh)
   const long long base = ((long long)b * Tk + j) * H * Dh + (long long)h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d) {
+  for (int d = 0; d < DW; ++d) {
     if (d < Dh) {
       store(dk + base + d, dka[d] * scale);
       store(dv + base + d, dva[d]);
@@ -347,7 +354,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dQ: one thread per query row; K / V tiles staged in shared memory.
-template <typename T>
+template <typename T, int DW>
 __global__ void __launch_bounds__(kRows)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ kv_mask,
@@ -355,8 +362,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ delta, T* __restrict__ dq, Strides st,
               int do_sb, int do_st, int Tq, int Tk, int H, int Dh, int causal,
               float scale) {
-  __shared__ __align__(16) float ks[kKTile][kDhMax];
-  __shared__ __align__(16) float vs[kKTile][kDhMax];
+  __shared__ __align__(16) float ks[kKTile][DW];
+  __shared__ __align__(16) float vs[kKTile][DW];
   __shared__ float flag[kKTile];
 
   const int b = blockIdx.z, h = blockIdx.y;
@@ -367,11 +374,11 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // an all-masked row has dS = 0 everywhere: dQ stays 0
   const bool work = live && Li != kNegInf;
 
-  float qr[kDhMax], gr[kDhMax], acc[kDhMax];
+  float qr[DW], gr[DW], acc[DW];
   const T* qp = q + (long long)b * st.q_sb + (long long)i * st.q_st + h * Dh;
   const T* gp = dout + (long long)b * do_sb + (long long)i * do_st + h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d) {
+  for (int d = 0; d < DW; ++d) {
     qr[d] = (work && d < Dh) ? to_float(qp[d]) : 0.f;
     gr[d] = (work && d < Dh) ? to_float(gp[d]) : 0.f;
     acc[d] = 0.f;
@@ -382,8 +389,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* mb = kv_mask + (long long)b * Tk;
   for (int j0 = 0; j0 < Tk; j0 += kKTile) {
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kKTile * kDhMax; idx += kRows) {
-      const int j = idx / kDhMax, d = idx % kDhMax;
+    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kRows) {
+      const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * st.k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * st.v_st + d]) : 0.f;
@@ -398,7 +405,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4* v4 = reinterpret_cast<const float4*>(vs[jj]);
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+      for (int d4 = 0; d4 < DW / 4; ++d4) {
         const float4 a = k4[d4], c = v4[d4];
         dot += qr[4 * d4] * a.x + qr[4 * d4 + 1] * a.y +
                qr[4 * d4 + 2] * a.z + qr[4 * d4 + 3] * a.w;
@@ -408,7 +415,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = expf(dot * scale - Li);
       const float dsv = p * (dpv - Di);
 #pragma unroll
-      for (int d4 = 0; d4 < kDhMax / 4; ++d4) {
+      for (int d4 = 0; d4 < DW / 4; ++d4) {
         const float4 a = k4[d4];
         acc[4 * d4] += dsv * a.x;
         acc[4 * d4 + 1] += dsv * a.y;
@@ -420,40 +427,42 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!live) return;
   T* out = dq + ((long long)b * Tq + i) * H * Dh + (long long)h * Dh;
 #pragma unroll
-  for (int d = 0; d < kDhMax; ++d)
+  for (int d = 0; d < DW; ++d)
     if (d < Dh) store(out + d, acc[d] * scale);
 }
 
 
 // ---------------------------------------------------------------------------
-// Backward on the Hopper path: bf16, Dh = 64 (csrc/hopper_attention.cuh).
-// P_ij = exp2(s_ij·Dh^-0.5·log2 e − L_i·log2 e) at visible entries, 0
+// Backward on the Hopper path: bf16, DH = 8, 16, 32 or 64
+// (csrc/hopper_attention.cuh).
+// P_ij = exp2(s_ij·DH^-0.5·log2 e − L_i·log2 e) at visible entries, 0
 // elsewhere, plus 1/Tk on a row whose L is NEG_INF (all keys masked, no dS);
 // dV_j = Σ_i round(P_ij)·dO_i;  dS_ij = P_ij·(dO_i·v_j − D_i) at visible
 // entries;  dQ_i = scale·Σ_j dS_ij·k_j;  dK_j = scale·Σ_i dS_ij·q_i.
 
 using hopper::kStages;
-using hopper::kTileBytes;
+using hopper::Width;
 
-// D_i = Σ_d dO_id·O_id: 8 threads per (b, i, h) row, one 16-byte load of o
-// and of dO each, the 8 partial sums reduced by shuffles in a fixed order.
+// D_i = Σ_d dO_id·O_id: DH / 8 threads per (b, i, h) row, one 16-byte load
+// of o and of dO each, the partial sums reduced by shuffles in a fixed order.
+template <int DH>
 __global__ void __launch_bounds__(256)
 bwd_delta_rows_kernel(const hopper::bf16* __restrict__ o,
                       const hopper::bf16* __restrict__ dout,
                       float* __restrict__ delta, long long o_sb, long long o_st,
                       long long do_sb, long long do_st, int B, int Tq, int H) {
-  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
-  const int part = threadIdx.x & 7;
+  constexpr int P = DH / 8;  // threads per row
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / P;
+  const int part = threadIdx.x % P;
   const bool live = r < (long long)B * Tq * H;
   const int h = live ? (int)(r % H) : 0;
   const int i = live ? (int)((r / H) % Tq) : 0;
   const int b = live ? (int)(r / ((long long)H * Tq)) : 0;
   float acc = 0.f;
   if (live) {
-    const uint4 a = *reinterpret_cast<const uint4*>(
-        o + b * o_sb + i * o_st + h * hopper::kDh + part * 8);
-    const uint4 c = *reinterpret_cast<const uint4*>(
-        dout + b * do_sb + i * do_st + h * hopper::kDh + part * 8);
+    const uint4 a = *reinterpret_cast<const uint4*>(o + b * o_sb + i * o_st + h * DH + part * 8);
+    const uint4 c =
+        *reinterpret_cast<const uint4*>(dout + b * do_sb + i * do_st + h * DH + part * 8);
     const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
     const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
 #pragma unroll
@@ -463,7 +472,7 @@ bwd_delta_rows_kernel(const hopper::bf16* __restrict__ o,
     }
   }
 #pragma unroll
-  for (int off = 4; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int off = P / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (live && part == 0) delta[((long long)b * H + h) * Tq + i] = acc;
 }
 
@@ -471,7 +480,7 @@ struct BwdParams {
   const float* mask;   // (B, Tk)
   const float* lse;    // (B, H, Tq), natural log
   const float* delta;  // (B, H, Tq)
-  hopper::bf16 *dq, *dk, *dv;  // dense (B, T, H, 64)
+  hopper::bf16 *dq, *dk, *dv;  // dense (B, T, H, DH)
   int Tq, Tk, H, causal;
   float scale, scale_log2, inv_tk;
 };
@@ -495,15 +504,20 @@ __device__ __forceinline__ void row_terms(const BwdParams& p, long long row0, in
   *pu = U;
 }
 
-constexpr int kDkdvSmemBytes = 1024 + (2 + 2 * kStages) * kTileBytes +
-                               3 * kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+template <int DH>
+constexpr int dkdv_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         3 * kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+}
 
 // dK, dV: one block per (64 keys, head, batch), one consumer warpgroup
 // (warps 0..3) and one producer warp (warp 4); K and V tiles resident, Q, dO and the row terms stream through the
-// ring.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS); Pᵀ and dSᵀ are formed in the
-// accumulators, which are already in A-operand layout; dV += Pᵀ·dO and
-// dK += dSᵀ·Q (RS, dO and Q read transposed).
-// At least two blocks per SM (four accumulators of 32 floats a thread).
+// ring.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS, m64n64 over DH / 16 k-steps); Pᵀ
+// and dSᵀ are formed in the accumulators, which are already in A-operand
+// layout; dV += Pᵀ·dO and dK += dSᵀ·Q (RS m64nDH, dO and Q read
+// transposed).  At least two blocks per SM (at DH 64, four accumulators of
+// 32 floats a thread).
+template <int DH>
 __global__ void __launch_bounds__(160, 2)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
@@ -512,13 +526,15 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   using namespace hopper;
   constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
   constexpr float kNegInf = hopper::kNegInf;
+  constexpr int kTile = Width<DH>::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* ks = base;
-  uint8_t* vs = ks + kTileBytes;
-  uint8_t* qs = vs + kTileBytes;
-  uint8_t* gs = qs + kStages * kTileBytes;
-  float* l2s = reinterpret_cast<float*>(gs + kStages * kTileBytes);
+  uint8_t* vs = ks + kTile;
+  uint8_t* qs = vs + kTile;
+  uint8_t* gs = qs + kStages * kTile;
+  uint8_t* zero = gs + kStages * kTile;  // DH 8 only
+  float* l2s = reinterpret_cast<float*>(zero + Width<DH>::kZeroBytes);
   float* dds = l2s + kStages * kRows;
   float* pus = dds + kStages * kRows;
   uint64_t* full = reinterpret_cast<uint64_t*>(pus + kStages * kRows);
@@ -542,6 +558,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const int count = lead + n_qt - first;
 
+  zero_block<DH>(zero);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);
@@ -554,7 +571,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (warp == 4) {  // ---- producer warp
     if (lane == 0) {
-      mbar_arrive_tx(kvbar, 2 * kTileBytes);
+      mbar_arrive_tx(kvbar, 2 * kTile);
       tma_load(ks, &map_k, kvbar, h, j0, b);
       tma_load(vs, &map_v, kvbar, h, j0, b);
     }
@@ -569,9 +586,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   &pus[s * kRows + c]);
       }
       if (lane == 0) {
-        mbar_arrive_tx(&full[s], 2 * kTileBytes);
-        tma_load(qs + s * kTileBytes, &map_q, &full[s], h, i0, b);
-        tma_load(gs + s * kTileBytes, &map_do, &full[s], h, i0, b);
+        mbar_arrive_tx(&full[s], 2 * kTile);
+        tma_load(qs + s * kTile, &map_q, &full[s], h, i0, b);
+        tma_load(gs + s * kTile, &map_do, &full[s], h, i0, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -589,20 +606,21 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint8_t* v_tile = vs;
   const float sl2 = p.scale_log2;
 
-  float dk[32], dv[32], st[32], dp[32];
+  constexpr int NO = DH / 2;  // dK / dV accumulators a thread
+  float dk[NO], dv[NO], st[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kvbar, 0);
 
   for (int idx = 0; idx < count; ++idx) {
     const int s = idx % kStages;
     const int i0 = (idx < lead ? idx : first + idx - lead) * kRows;
     mbar_wait(&full[s], (idx / kStages) & 1);
-    const uint8_t* q_tile = qs + s * kTileBytes;
-    const uint8_t* g_tile = gs + s * kTileBytes;
+    const uint8_t* q_tile = qs + s * kTile;
+    const uint8_t* g_tile = gs + s * kTile;
     wgmma_fence();
-    gemm_abt(st, k_tile, q_tile);  // Sᵀ
-    gemm_abt(dp, v_tile, g_tile);  // dPᵀ
+    gemm_abt<DH>(st, k_tile, q_tile, zero);  // Sᵀ
+    gemm_abt<DH>(dp, v_tile, g_tile, zero);  // dPᵀ
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -639,8 +657,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     to_operand(st, pa);
     to_operand(dp, sa);
     wgmma_fence();
-    gemm_pb(dv, pa, g_tile);  // dV += Pᵀ·dO
-    gemm_pb(dk, sa, q_tile);  // dK += dSᵀ·Q
+    gemm_pb<DH>(dv, pa, g_tile);  // dV += Pᵀ·dO
+    gemm_pb<DH>(dk, sa, q_tile);  // dK += dSᵀ·Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -648,18 +666,18 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dK, dV are dense (B, Tk, H, 64)
+  // dK, dV are dense (B, Tk, H, DH)
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
     if (kr0 < p.Tk) {
-      const long long off = ((long long)b * p.Tk + kr0) * p.H * kDh + (long long)h * kDh + col;
+      const long long off = ((long long)b * p.Tk + kr0) * p.H * DH + (long long)h * DH + col;
       *reinterpret_cast<uint32_t*>(p.dk + off) =
           pack_bf16(dk[4 * c] * p.scale, dk[4 * c + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c], dv[4 * c + 1]);
     }
     if (kr1 < p.Tk) {
-      const long long off = ((long long)b * p.Tk + kr1) * p.H * kDh + (long long)h * kDh + col;
+      const long long off = ((long long)b * p.Tk + kr1) * p.H * DH + (long long)h * DH + col;
       *reinterpret_cast<uint32_t*>(p.dk + off) =
           pack_bf16(dk[4 * c + 2] * p.scale, dk[4 * c + 3] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c + 2], dv[4 * c + 3]);
@@ -667,14 +685,18 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-constexpr int kDqSmemBytes = 1024 + (2 + 2 * kStages) * kTileBytes +
-                             kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+template <int DH>
+constexpr int dq_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+}
 
 // dQ: one block per (64 queries, head, batch), one consumer warpgroup
 // (warps 0..3) and one producer warp (warp 4); Q and dO tiles resident, K/V tiles and key flags stream through the
 // ring.  S = Q·Kᵀ and dP = dO·Vᵀ (SS), dS in the accumulators, dQ += dS·K
-// (RS, K read transposed).
+// (RS m64nDH, K read transposed).
 // At least three blocks per SM.
+template <int DH>
 __global__ void __launch_bounds__(160, 3)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -683,13 +705,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   using namespace hopper;
   constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
   constexpr float kNegInf = hopper::kNegInf;
+  constexpr int kTile = Width<DH>::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* qs = base;
-  uint8_t* gs = qs + kTileBytes;
-  uint8_t* ks = gs + kTileBytes;
-  uint8_t* vs = ks + kStages * kTileBytes;
-  float* flag = reinterpret_cast<float*>(vs + kStages * kTileBytes);
+  uint8_t* gs = qs + kTile;
+  uint8_t* ks = gs + kTile;
+  uint8_t* vs = ks + kStages * kTile;
+  uint8_t* zero = vs + kStages * kTile;  // DH 8 only
+  float* flag = reinterpret_cast<float*>(zero + Width<DH>::kZeroBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(flag + kStages * kRows);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -705,6 +729,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   int n_kt = (p.Tk + kRows - 1) / kRows;
   if (p.causal) n_kt = min(n_kt, (min(p.Tq, q0 + kRows) - 1) / kRows + 1);
 
+  zero_block<DH>(zero);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);
@@ -717,7 +742,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (warp == 4) {  // ---- producer warp
     if (lane == 0) {
-      mbar_arrive_tx(qbar, 2 * kTileBytes);
+      mbar_arrive_tx(qbar, 2 * kTile);
       tma_load(qs, &map_q, qbar, h, q0, b);
       tma_load(gs, &map_do, qbar, h, q0, b);
     }
@@ -731,9 +756,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             j < p.Tk ? (mask_b[j] > 0.f ? 0.f : kNegInf) : -INFINITY;
       }
       if (lane == 0) {
-        mbar_arrive_tx(&full[s], 2 * kTileBytes);
-        tma_load(ks + s * kTileBytes, &map_k, &full[s], h, kt * kRows, b);
-        tma_load(vs + s * kTileBytes, &map_v, &full[s], h, kt * kRows, b);
+        mbar_arrive_tx(&full[s], 2 * kTile);
+        tma_load(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
+        tma_load(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -750,19 +775,20 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint8_t* g_tile = gs;
   const float sl2 = p.scale_log2;
 
-  float dq[32], sc[32], dp[32];
+  constexpr int NO = DH / 2;  // dQ accumulators a thread
+  float dq[NO], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
   mbar_wait(qbar, 0);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % kStages;
     const int j0 = kt * kRows;
     mbar_wait(&full[s], (kt / kStages) & 1);
-    const uint8_t* k_tile = ks + s * kTileBytes;
+    const uint8_t* k_tile = ks + s * kTile;
     wgmma_fence();
-    gemm_abt(sc, q_tile, k_tile);                   // S
-    gemm_abt(dp, g_tile, vs + s * kTileBytes);      // dP
+    gemm_abt<DH>(sc, q_tile, k_tile, zero);             // S
+    gemm_abt<DH>(dp, g_tile, vs + s * kTile, zero);     // dP
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -790,42 +816,80 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t sa[4][4];
     to_operand(dp, sa);
     wgmma_fence();
-    gemm_pb(dq, sa, k_tile);  // dQ += dS·K
+    gemm_pb<DH>(dq, sa, k_tile);  // dQ += dS·K
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dQ is dense (B, Tq, H, 64)
+  // dQ is dense (B, Tq, H, DH)
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
     if (r0 < p.Tq)
-      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r0) * p.H * kDh +
-                                   (long long)h * kDh + col) =
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r0) * p.H * DH +
+                                   (long long)h * DH + col) =
           pack_bf16(dq[4 * c] * p.scale, dq[4 * c + 1] * p.scale);
     if (r1 < p.Tq)
-      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r1) * p.H * kDh +
-                                   (long long)h * kDh + col) =
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r1) * p.H * DH +
+                                   (long long)h * DH + col) =
           pack_bf16(dq[4 * c + 2] * p.scale, dq[4 * c + 3] * p.scale);
   }
 }
 
-bool args_ok(int B, int Tq, int Tk, int H, int Dh) {
+bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 &&
-         Dh >= 8 && Dh <= kDhMax && Dh % 8 == 0;
+         Dh >= 8 && Dh <= kDhMax && Dh % 8 == 0 && (dtype == 0 || dtype == 1);
+}
+
+// the SIMT kernels' register width for head width Dh
+inline int simt_width(int Dh) { return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 64; }
+
+template <typename T, int DW>
+int launch_fwd_simt(const void* q, const void* k, const void* v, const float* mask, void* o,
+                    float* lse, Strides st, int B, int Tq, int Tk, int H, int Dh, int causal,
+                    cudaStream_t s) {
+  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  fwd_kernel<T, DW><<<grid, kRows, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, st, Tq, Tk, H,
+      Dh, causal, rsqrtf((float)Dh));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                void* o, float* lse, Strides st, int B, int Tq, int Tk, int H,
                int Dh, int causal, cudaStream_t s) {
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  fwd_kernel<T><<<grid, kRows, 0, s>>>(
+#define TFA_FWD(DW) launch_fwd_simt<T, DW>(q, k, v, mask, o, lse, st, B, Tq, Tk, H, Dh, causal, s)
+  switch (simt_width(Dh)) {
+    case 8: return TFA_FWD(8);
+    case 16: return TFA_FWD(16);
+    case 32: return TFA_FWD(32);
+    default: return TFA_FWD(64);
+  }
+#undef TFA_FWD
+}
+
+template <typename T, int DW>
+int launch_bwd_simt(const void* q, const void* k, const void* v, const float* mask,
+                    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                    const float* delta, Strides st, int do_sb, int do_st, int Tq, int Tk,
+                    int B, int H, int Dh, int causal, float scale, cudaStream_t s) {
+  const dim3 gk((Tk + kRows - 1) / kRows, H, B);
+  bwd_dkdv_kernel<T, DW><<<gk, kRows, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, st, Tq, Tk, H,
-      Dh, causal, rsqrtf((float)Dh));
+      static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), st, do_sb, do_st, Tq, Tk, H,
+      Dh, causal, scale);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const dim3 gq((Tq + kRows - 1) / kRows, H, B);
+  bwd_dq_kernel<T, DW><<<gq, kRows, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), st, do_sb, do_st, Tq, Tk, H, Dh, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -840,22 +904,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask,
   bwd_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, st.o_sb,
       st.o_st, do_sb, do_st, B, Tq, H, Dh);
-  int rc = (int)cudaGetLastError();
+  const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const dim3 gk((Tk + kRows - 1) / kRows, H, B);
-  bwd_dkdv_kernel<T><<<gk, kRows, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), st, do_sb, do_st, Tq, Tk, H,
-      Dh, causal, scale);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const dim3 gq((Tq + kRows - 1) / kRows, H, B);
-  bwd_dq_kernel<T><<<gq, kRows, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), st, do_sb, do_st, Tq, Tk, H, Dh, causal, scale);
-  return (int)cudaGetLastError();
+#define TFA_BWD(DW)                                                                       \
+  launch_bwd_simt<T, DW>(q, k, v, mask, lse, dout, dq, dk, dv, delta, st, do_sb, do_st, Tq, \
+                         Tk, B, H, Dh, causal, scale, s)
+  switch (simt_width(Dh)) {
+    case 8: return TFA_BWD(8);
+    case 16: return TFA_BWD(16);
+    case 32: return TFA_BWD(32);
+    default: return TFA_BWD(64);
+  }
+#undef TFA_BWD
 }
 
 using BwdKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdParams);
@@ -870,6 +930,7 @@ int launch_bwd_kernel(int smem, int blocks, int H, int B, const CUtensorMap& mq,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
 int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* mask,
                       const void* o, const float* lse, const void* dout, void* dq,
                       void* dk, void* dv, float* delta, const Strides& st, int do_sb,
@@ -877,27 +938,46 @@ int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* 
                       cudaStream_t s) {
   using hopper::make_map;
   CUtensorMap mq, mk, mv, mdo;
-  int rc = make_map(&mq, q, B, Tq, H, st.q_sb, st.q_st);
-  if (rc == 0) rc = make_map(&mk, k, B, Tk, H, st.k_sb, st.k_st);
-  if (rc == 0) rc = make_map(&mv, v, B, Tk, H, st.v_sb, st.v_st);
-  if (rc == 0) rc = make_map(&mdo, dout, B, Tq, H, do_sb, do_st);
+  int rc = make_map<DH>(&mq, q, B, Tq, H, st.q_sb, st.q_st);
+  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, st.k_sb, st.k_st);
+  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, st.v_sb, st.v_st);
+  if (rc == 0) rc = make_map<DH>(&mdo, dout, B, Tq, H, do_sb, do_st);
   if (rc != 0) return rc;
+  constexpr int P = DH / 8;  // delta threads per row
   const long long rows = (long long)B * Tq * H;
-  bwd_delta_rows_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0, s>>>(
+  bwd_delta_rows_kernel<DH><<<(unsigned)((rows * P + 255) / 256), 256, 0, s>>>(
       static_cast<const hopper::bf16*>(o), static_cast<const hopper::bf16*>(dout), delta,
       st.o_sb, st.o_st, do_sb, do_st, B, Tq, H);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const float scale = rsqrtf((float)hopper::kDh);
+  const float scale = rsqrtf((float)DH);
   const BwdParams p{mask, lse, delta, static_cast<hopper::bf16*>(dq),
                     static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv),
                     Tq, Tk, H, causal, scale, scale * hopper::kLog2e, 1.f / (float)Tk};
   constexpr int R = hopper::kRows;
-  rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel>(kDkdvSmemBytes, (Tk + R - 1) / R, H, B,
-                                                mq, mk, mv, mdo, p, s);
+  rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel<DH>>(dkdv_smem_bytes<DH>(), (Tk + R - 1) / R,
+                                                    H, B, mq, mk, mv, mdo, p, s);
   if (rc != 0) return rc;
-  return launch_bwd_kernel<bwd_dq_wgmma_kernel>(kDqSmemBytes, (Tq + R - 1) / R, H, B, mq,
-                                                mk, mv, mdo, p, s);
+  return launch_bwd_kernel<bwd_dq_wgmma_kernel<DH>>(dq_smem_bytes<DH>(), (Tq + R - 1) / R, H,
+                                                    B, mq, mk, mv, mdo, p, s);
+}
+
+using hopper::tma_ok;
+
+// The forward launcher's route: 1 = tensor cores, 0 = SIMT.
+bool fwd_route(const void* q, const void* k, const void* v, const void* o, const Strides& st,
+               int B, int Tq, int Tk, int Dh, int dtype) {
+  return hopper::tensor_core_route(
+      dtype, Dh,
+      tma_ok(q, B, st.q_sb, Tq, st.q_st) && tma_ok(k, B, st.k_sb, Tk, st.k_st) &&
+          tma_ok(v, B, st.v_sb, Tk, st.v_st) && tma_ok(o, B, st.o_sb, Tq, st.o_st));
+}
+
+// The backward launcher's route: the forward's, with dO aligned too.
+bool bwd_route(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const Strides& st, int do_sb, int do_st, int B, int Tq, int Tk, int Dh,
+               int dtype) {
+  return fwd_route(q, k, v, o, st, B, Tq, Tk, Dh, dtype) && tma_ok(dout, B, do_sb, Tq, do_st);
 }
 
 }  // namespace
@@ -906,29 +986,28 @@ int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* 
 // stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.
 // causal: 0 or 1.  Each entry returns cudaGetLastError() after its launches
 // (0 = launched), -1 when the arguments are outside what it takes, or
-// another nonzero code when a TMA tensor map cannot be encoded.
+// another nonzero code when a TMA tensor map cannot be encoded; *route_out
+// (when not null) is set to the route taken: 1 = tensor cores, 0 = SIMT.
 
 // o: (B, Tq, H, Dh) with strides o_sb / o_st; lse: (B, H, Tq) fp32, dense.
 extern "C" int train_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, void* o,
     void* lse, int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st,
     int o_sb, int o_st, int B, int Tq, int Tk, int H, int Dh, int causal,
-    int dtype, void* stream) {
-  if (!args_ok(B, Tq, Tk, H, Dh)) return -1;
+    int dtype, void* stream, int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
   const Strides st{q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st};
   const float* mask = static_cast<const float*>(kv_mask);
   float* L = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = fwd_route(q, k, v, o, st, B, Tq, Tk, Dh, dtype);
+  if (route_out != nullptr) *route_out = tc ? 1 : 0;
+  if (tc)
+    return hopper::launch_fwd_at<true>(Dh, q, k, v, mask, o, L, q_sb, q_st, k_sb, k_st, v_sb,
+                                       v_st, o_sb, o_st, B, Tq, Tk, H, causal, s);
   if (dtype == 0)
     return launch_fwd<float>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, s);
-  if (dtype != 1) return -1;
-  if (Dh == hopper::kDh && hopper::tma_ok(q, B, q_sb, Tq, q_st) &&
-      hopper::tma_ok(k, B, k_sb, Tk, k_st) && hopper::tma_ok(v, B, v_sb, Tk, v_st) &&
-      hopper::tma_ok(o, B, o_sb, Tq, o_st))
-    return hopper::launch_fwd<true>(q, k, v, mask, o, L, q_sb, q_st, k_sb, k_st, v_sb,
-                                    v_st, o_sb, o_st, B, Tq, Tk, H, causal, s);
-  return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh,
-                                   causal, s);
+  return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, s);
 }
 
 // dq: (B, Tq, H, Dh), dk, dv: (B, Tk, H, Dh), all dense; delta: (B, H, Tq)
@@ -938,22 +1017,30 @@ extern "C" int train_flash_attention_bwd(
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
     void* dv, void* delta, int q_sb, int q_st, int k_sb, int k_st, int v_sb,
     int v_st, int o_sb, int o_st, int do_sb, int do_st, int B, int Tq, int Tk,
-    int H, int Dh, int causal, int dtype, void* stream) {
-  if (!args_ok(B, Tq, Tk, H, Dh)) return -1;
+    int H, int Dh, int causal, int dtype, void* stream, int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
   const Strides st{q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st};
   const float* mask = static_cast<const float*>(kv_mask);
   const float* L = static_cast<const float*>(lse);
   float* D = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = bwd_route(q, k, v, o, dout, st, do_sb, do_st, B, Tq, Tk, Dh, dtype);
+  if (route_out != nullptr) *route_out = tc ? 1 : 0;
+  if (tc) {
+#define TFA_HOPPER(DH)                                                                     \
+  launch_bwd_hopper<DH>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st, do_sb, do_st, B, Tq, \
+                        Tk, H, causal, s)
+    switch (Dh) {
+      case 8: return TFA_HOPPER(8);
+      case 16: return TFA_HOPPER(16);
+      case 32: return TFA_HOPPER(32);
+      default: return TFA_HOPPER(64);
+    }
+#undef TFA_HOPPER
+  }
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
                              do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
-  if (dtype != 1) return -1;
-  if (Dh == hopper::kDh && hopper::tma_ok(q, B, q_sb, Tq, q_st) &&
-      hopper::tma_ok(k, B, k_sb, Tk, k_st) && hopper::tma_ok(v, B, v_sb, Tk, v_st) &&
-      hopper::tma_ok(o, B, o_sb, Tq, o_st) && hopper::tma_ok(dout, B, do_sb, Tq, do_st))
-    return launch_bwd_hopper(q, k, v, mask, o, L, dout, dq, dk, dv, D, st, do_sb, do_st,
-                             B, Tq, Tk, H, causal, s);
   return launch_bwd<__nv_bfloat16>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
                                    do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
 }

@@ -104,12 +104,17 @@ def compile_source(name: str, log=print) -> Path:
 
 #: SASS opcodes of the Hopper path: wgmma and TMA tensor loads
 SASS_OPCODES = ("HGMMA", "UTMALDG")
+#: wgmma shapes (M x N x K) each library holds: the m64n64k16 products that
+#: reduce over the head width, and the m64nDhk16 products whose output is
+#: the head width, at each width of the tensor-core path (8, 16, 32, 64)
+HGMMA_SHAPES = ("64x8x16", "64x16x16", "64x32x16", "64x64x16")
 
 
 def sass_counts(lib: Path) -> dict[str, int] | str:
-    """How many instructions of each of ``SASS_OPCODES`` the built
-    library's SASS holds (``cuobjdump -sass`` beside ``nvcc``), or why it
-    cannot say."""
+    """How many instructions of each of ``SASS_OPCODES``, and of HGMMA at
+    each of ``HGMMA_SHAPES`` (as ``HGMMA.<shape>``), the built library's
+    SASS holds (``cuobjdump -sass`` beside ``nvcc``), or why it cannot
+    say."""
     tool = Path(nvcc()).with_name("cuobjdump")
     if not tool.is_file():
         found = shutil.which("cuobjdump")
@@ -119,7 +124,10 @@ def sass_counts(lib: Path) -> dict[str, int] | str:
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
     if proc.returncode != 0:
         return f"cuobjdump failed ({proc.returncode}): {proc.stderr.strip()[:200]}"
-    return {op: len(re.findall(rf"\b{op}\b", proc.stdout)) for op in SASS_OPCODES}
+    counts = {op: len(re.findall(rf"\b{op}\b", proc.stdout)) for op in SASS_OPCODES}
+    for shape in HGMMA_SHAPES:
+        counts[f"HGMMA.{shape}"] = len(re.findall(rf"\bHGMMA\.{shape}\b", proc.stdout))
+    return counts
 
 
 def build_all(names=None, log=print) -> dict[str, Path]:

@@ -8,7 +8,9 @@ only on padding *query* rows, which every caller multiplies away (DiT blocks,
 condition towers, the NAR's ``to_out(o) * mask``).
 
 For a tensor on the CPU the wrapper runs the plain version; for a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises.  The launcher reports the route it took
+(tensor cores or SIMT, ``route.tensor_core_route``'s rule), which the
+wrapper counts in ``launches_tc``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def _kernel():
         from . import _build
 
         fn = _build.load("masked_attention").masked_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -102,21 +105,26 @@ def masked_attention(q, k, v, kv_mask):
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), o.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-            B, Tq, Tk, H, Dh, _DTYPE_CODE[q.dtype], stream)
+            B, Tq, Tk, H, Dh, _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"masked_attention kernel launch failed: error {rc}")
     masked_attention.launches += 1
+    masked_attention.launches_tc += route.value
     return o
 
 
 #: kernel launches (CUDA tensors only); set to 0 before a run to count it
 masked_attention.launches = 0
+#: of ``launches``, those on the tensor cores (the rest ran the SIMT kernels);
+#: set to 0 with ``launches``
+masked_attention.launches_tc = 0
 #: plain-version calls made for CPU tensors (lets a CPU rehearsal count the
 #: attention calls of a run; never incremented on the card)
 masked_attention.plain_calls = 0

@@ -12,7 +12,10 @@ rows are not masked: every caller multiplies them away, and the gradients
 are exact because dO is 0 there.
 
 For a tensor on the CPU the wrapper runs the plain version (differentiated
-by autograd); for a CUDA tensor it launches the kernel or raises.
+by autograd); for a CUDA tensor it launches the kernel or raises.  The
+launchers report the route each forward and backward took (tensor cores or
+SIMT, ``route.tensor_core_route``'s rule), counted in ``launches_tc`` and
+``backward_launches_tc``.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ def _kernels():
 
         lib = _build.load("train_flash_attention")
         fwd, bwd = lib.train_flash_attention_fwd, lib.train_flash_attention_bwd
-        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
-        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+        route_out = [ctypes.POINTER(ctypes.c_int)]
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p] + route_out
+        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 17 + [ctypes.c_void_p] + route_out
         fwd.restype = bwd.restype = ctypes.c_int
         _fns = fwd, bwd
     return _fns
@@ -78,16 +82,18 @@ def _forward(q, k, v, kv_mask, causal: bool):
     Tk = k.shape[1]
     o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), o.data_ptr(),
             lse.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream)
+            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"train_flash_attention forward launch failed: error {rc}")
     train_flash_attention.launches += 1
+    train_flash_attention.launches_tc += route.value
     return o, lse
 
 
@@ -99,6 +105,7 @@ def _backward(q, k, v, kv_mask, o, lse, do, causal: bool):
     dk = torch.empty((B, Tk, H, Dh), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, Dh), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernels()[1](
@@ -106,10 +113,11 @@ def _backward(q, k, v, kv_mask, o, lse, do, causal: bool):
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream)
+            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"train_flash_attention backward launch failed: error {rc}")
     train_flash_attention.backward_launches += 1
+    train_flash_attention.backward_launches_tc += route.value
     return dq, dk, dv
 
 
@@ -146,8 +154,12 @@ def train_flash_attention(q, k, v, kv_mask, causal: bool = False):
 
 #: forward kernel launches (CUDA tensors only); set to 0 before a run to count it
 train_flash_attention.launches = 0
+#: of ``launches``, those on the tensor cores (the rest ran the SIMT kernels)
+train_flash_attention.launches_tc = 0
 #: backward launches (one per backward call: D, dK/dV and dQ kernels)
 train_flash_attention.backward_launches = 0
+#: of ``backward_launches``, those on the tensor cores
+train_flash_attention.backward_launches_tc = 0
 #: plain-version calls made for CPU tensors (never incremented on the card)
 train_flash_attention.plain_calls = 0
 #: a ``collections.Counter`` to record each forward's (B, Tq, H, Dh, Tk,

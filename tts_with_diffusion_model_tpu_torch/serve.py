@@ -16,11 +16,12 @@ D3PM, a Gaussian or an AR first stage.
   NAR runs at the ``max_ar_steps`` response bucket with each row masked to
   its length, and each request is decoded alone at a 448-frame bucket and
   trimmed to its own length.
-Requests are padded to fixed buckets: batch 1 or ``max_batch`` (pad rows
-copy row 0 and are discarded), text ``text_len``, prompt the smallest
-128-multiple covering the cohort's longest prompt.  Every row's sampling
-noise derives only from its own seed, so a request's audio does not depend
-on its cohort.  A text over the text bucket is synthesized in chained
+Requests are padded to fixed buckets: batch 1 (a lone bf16 request) or
+``max_batch`` (pad rows copy row 0 and are discarded), text ``text_len``,
+prompt the smallest 128-multiple covering the cohort's longest prompt.
+Every row's sampling noise derives only from its own seed, so a request's
+audio does not depend on its cohort; in fp32, where even a lone request
+runs the ``max_batch`` bucket, not by a bit.  A text over the text bucket is synthesized in chained
 segments (``longform.py``), and ``synthesize_stream`` yields one wav chunk
 per segment.
 
@@ -131,6 +132,7 @@ class Synthesizer:
         self.first = first.to(self.device).eval()
         self.nar = nar.to(self.device).eval()
         self.draft = draft.to(self.device).eval() if draft is not None else None
+        self.bf16 = bf16
         if bf16:
             for m in (self.first, self.nar, self.draft):
                 if m is not None:
@@ -290,7 +292,11 @@ class Synthesizer:
         if len(seeds) != len(prepared):
             raise ValueError("need one seed per prepared row")
         n_req = len(prepared)
-        pad_to = 1 if n_req == 1 else self.max_batch
+        # with fp32 weights (bf16=False) a batch always takes the max_batch
+        # bucket: GEMMs, reductions and cuDNN convolutions pick their kernels
+        # (and so their rounding) by shape, so a lone request at batch 1 need
+        # not give the codes it gives beside others
+        pad_to = self.max_batch if n_req > 1 or not self.bf16 else 1
         rows = prepared + [prepared[0]] * (pad_to - n_req)
         row_seeds = list(seeds) + [seeds[0]] * (pad_to - n_req)
         dev = self.device

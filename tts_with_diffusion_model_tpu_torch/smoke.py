@@ -246,13 +246,37 @@ def bound_ms(B, Tq, Tk, H, Dh, dtype, pairs: tuple[int, int] | None = None) -> t
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def unaligned(t):
+    """A copy of the (B, T, H, Dh) tensor ``t`` whose time stride is H·Dh + 4
+    elements, not a multiple of 8: the libraries then take the SIMT route
+    (``ops/route.tma_aligned``), on the same values."""
+    B, T, H, Dh = t.shape
+    buf = torch.zeros(B, T, H * Dh + 4, dtype=t.dtype, device=t.device)
+    view = buf[..., :H * Dh].unflatten(-1, (H, Dh))
+    view.copy_(t)
+    return view
+
+
+def check_route(what: str, launched: int, Dh: int, dtype, tensors):
+    """The route a launch reported (``launched``, 1 = tensor cores) against
+    ``route.tensor_core_route`` on the same tensors."""
+    from .ops.route import tensor_core_route, tma_aligned
+
+    want = int(tensor_core_route(Dh, dtype, tma_aligned(*tensors)))
+    check(launched == want, f"{what}: the launch took route {launched}, tensor_core_route "
+                            f"{want} (1 = tensor cores)")
+    return "tc" if want else "simt"
+
+
 def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> dict:
-    """Kernel (the wrapper) against the plain version on the same inputs,
-    then (``time_it``) the device time of the kernel, the plain version and
-    SDPA, and the kernel's eager wall time per call."""
+    """Kernel (the wrapper) against the plain version on the same inputs, its
+    route held to ``route.tensor_core_route``; then (``time_it``) the device
+    time of the kernel, the plain version and SDPA, and the kernel's eager
+    wall time per call."""
     q, k, v, mask = _inputs(B, site.Tq, site.Tk, site.H, site.Dh, dtype, device, seed)
-    before = attn_ops.masked_attention.launches
-    got = attn_ops.masked_attention(q, k, v, mask)
+    fn = attn_ops.masked_attention
+    before = fn.launches, fn.launches_tc
+    got = fn(q, k, v, mask)
     ref = attn_ops.masked_attention_plain(q, k, v, mask)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -263,6 +287,9 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
            "finite": finite}
     check(finite, f"{site.name} {dtype}: non-finite kernel output")
     check(err <= TOL[dtype], f"{site.name} {dtype}: max abs err {err:.3g} > {TOL[dtype]:g}")
+    if device.type == "cuda":
+        res["route"] = check_route(f"masked_attention {site.name} {dtype}",
+                                   fn.launches_tc - before[1], site.Dh, dtype, (q, k, v, got))
     if time_it and device.type == "cuda":
         res["ms"] = _time_ms(lambda: attn_ops.masked_attention(q, k, v, mask), device)
         res["eager_ms"] = _eager_ms(lambda: attn_ops.masked_attention(q, k, v, mask), device)
@@ -276,7 +303,7 @@ def check_site(site: Site, B: int, dtype, device, seed: int, time_it: bool) -> d
         res["vs_library"] = res["ms"] / res["library_ms"]
         res["vs_bound"] = res["ms"] / res["bound_ms"]
     # the comparison's own launches are not the main path's
-    attn_ops.masked_attention.launches = before
+    fn.launches, fn.launches_tc = before
     return res
 
 
@@ -298,8 +325,10 @@ def _check_and_log(site: Site, B: int, dtype, device, seed: int, timed: bool,
     r["count"] = count
     log(json.dumps(r))
     if "vs_library" in r:
-        log(f"ratio: masked_attention {r['site']} {r['Tq']}x{r['Tk']} (B={B}): "
-            f"kernel/SDPA {r['vs_library']:.3f}, kernel/bound {r['vs_bound']:.2f}")
+        tc = count if r["route"] == "tc" else 0
+        log(f"ratio: masked_attention {r['site']} {r['Tq']}x{r['Tk']} (B={B}, Dh {r['Dh']}): "
+            f"kernel/SDPA {r['vs_library']:.3f}, kernel/bound {r['vs_bound']:.2f}; launches "
+            f"per batch {count}: {tc} tensor cores, {count - tc} SIMT")
     return r
 
 
@@ -341,8 +370,9 @@ def batch_totals(results: list[dict]) -> dict:
 
     bytes_ms = sum(r["bound_ms"] * r["count"] for r in timed if r["bound_by"] == "bytes")
     ops_ms = sum(r["bound_ms"] * r["count"] for r in timed if r["bound_by"] == "operations")
-    return {"launches": sum(r["count"] for r in timed), "ms": total("ms"),
-            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+    return {"launches": sum(r["count"] for r in timed),
+            "launches_tc": sum(r["count"] for r in timed if r.get("route") == "tc"),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": total("library_ms")}
 
@@ -358,11 +388,12 @@ def path_totals(results: list[dict], sites: list[Site], launches_run: int) -> di
 
 def kernel_summary(results: list[dict], launches: int, eval_results=None,
                    eval_launches: int | None = None, paths: dict | None = None,
-                   checked=()) -> dict:
+                   checked=(), launches_tc: int | None = None) -> dict:
     """The kernel's line: per-batch sums over the main path's timed sites;
     with ``eval_results``, also per NAR val-loss eval batch, and the other
     ``paths`` (``path_totals``), under ``paths``; the errors of the sites in
-    ``checked`` count in ``max_abs_err`` too."""
+    ``checked`` count in ``max_abs_err`` too.  ``launches_tc``: of the main
+    path's ``launches``, those on the tensor cores."""
     serving = batch_totals(results)
     line = {
         "name": "masked_attention",
@@ -370,6 +401,7 @@ def kernel_summary(results: list[dict], launches: int, eval_results=None,
         "source": "tts_with_diffusion_model_tpu_torch/csrc/masked_attention.cu",
         "replaces": REPLACES,
         "launches": launches,
+        "launches_tc": launches_tc,
         "max_abs_err": max(r["max_abs_err"] for r in [*results, *(eval_results or []), *checked]
                            if r["dtype"] == "bfloat16"),
         **{k: serving[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -513,17 +545,17 @@ def serve_and_check(synth, nar_dims: dict, requests, label: str, repeats: int = 
     fn = attn_ops.masked_attention
     what = synth.decode + (f" stride {synth.stride}" if synth.decode == "ancestral" else "")
 
-    fn.launches, fn.plain_calls = 0, 0
+    fn.launches, fn.launches_tc, fn.plain_calls = 0, 0, 0
     _sync(device)
     t1 = time.perf_counter()
     codes, wavs = synth._device_batch(prepared, seeds, want_wav=True)
     _sync(device)
     first_s = time.perf_counter() - t1
-    launches, plain_calls = fn.launches, fn.plain_calls
+    launches, launches_tc, plain_calls = fn.launches, fn.launches_tc, fn.plain_calls
     counted = launches if device.type == "cuda" else plain_calls
     log(f"{label}: {what} ({calls} denoiser calls), first batch of {len(requests)} in "
-        f"{first_s:.3f} s; prompt bucket {pb}; kernel launches {launches}, plain calls "
-        f"{plain_calls}, expected {expected}")
+        f"{first_s:.3f} s; prompt bucket {pb}; kernel launches {launches} ({launches_tc} on "
+        f"the tensor cores), plain calls {plain_calls}, expected {expected}")
     check(counted == expected, f"{label} {what}: attention calls {counted} != expected {expected}")
     if device.type == "cuda":
         check(plain_calls == 0, f"{label} {what}: the plain path ran on the card")
@@ -554,7 +586,8 @@ def serve_and_check(synth, nar_dims: dict, requests, label: str, repeats: int = 
     p50 = float(np.median(times))
     log(f"{label}: {what} synthesize_batch of {len(requests)} p50 {p50 * 1e3:.1f} ms over "
         f"{repeats} ({'host clock around synchronised work' if device.type == 'cuda' else 'cpu, not a device time'})")
-    return {"launches": launches, "expected": expected, "p50_s": p50, "first_s": first_s,
+    return {"launches": launches, "launches_tc": launches_tc, "expected": expected,
+            "p50_s": p50, "first_s": first_s,
             "times_s": times, "prompt_bucket": pb, "sites": sites, "denoiser_err": den_err,
             "steps": calls, "codes": codes, "decode": what}
 
@@ -619,9 +652,10 @@ def denoiser_kernel_vs_plain(synth, prepared, seeds) -> tuple[float, float]:
         tc, sc = den.conds(text, tm, proms, pm)
         return den.denoise_with_kv(x, rm, t, den.cond_kv(tc, sc), tm, pm).float()
 
-    before = attn_ops.masked_attention.launches
+    fn = attn_ops.masked_attention
+    before = fn.launches, fn.launches_tc
     got = run()
     with mock.patch.object(attn_ops, "masked_attention", attn_ops.masked_attention_plain):
         ref = run()
-    attn_ops.masked_attention.launches = before
+    fn.launches, fn.launches_tc = before
     return (got - ref).abs().max().item(), ref.abs().max().item()

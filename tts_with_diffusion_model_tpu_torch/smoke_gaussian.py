@@ -6,7 +6,8 @@ rehearse it at a tiny size with the plain versions).
    attention site the Gaussian denoisers give them (head widths 32, 16 and
    8: the DiT's and its towers', the ``-unet`` bottleneck core's, the
    conv-UNet's cross-attentions per level), serving shapes for the
-   forward-only kernel and training shapes for the training kernel;
+   forward-only kernel and training shapes for the training kernel, every
+   bf16 call on the tensor cores;
 9. train -> export -> serve gaussian — for each variant of ``VARIANTS``:
    the train CLI on ``config/gen4c/diffusion.yml`` with ``model=<name>``
    (launches per step held to the sites, the val-loss eval), export
@@ -163,12 +164,52 @@ def kernel_sites(prompt_bucket: int, B_serve: int, B_train: int, bucket: int):
     return serve, train
 
 
+#: kernel 2's training sites whose backward is run twice and held
+#: bit-identical: one at each head width below 64
+DETERMINISM_SITES = ("gaussian dit: DiT self", "gaussian unet2d: conv-UNet level 1 cross",
+                     "gaussian unet2d: conv-UNet level 0 cross")
+
+
+def check_unaligned(site: Site, B: int, train: TrainSite, device, seed: int = 0):
+    """One bf16 call of each kernel on unaligned views of a site's inputs
+    (``smoke.unaligned``): it takes the SIMT kernels and agrees with the
+    plain version.  Its launches are not counted."""
+    from . import smoke_train
+    from .ops import train_flash_attention as train_ops
+    from .smoke import TOL, _inputs, unaligned
+
+    bf16 = torch.bfloat16
+    fn, tfn = serve_ops.masked_attention, train_ops.train_flash_attention
+    counts, tcounts = (fn.launches, fn.launches_tc), smoke_train._counters(tfn)
+    q, k, v, mask = _inputs(B, site.Tq, site.Tk, site.H, site.Dh, bf16, device, seed)
+    got = fn(unaligned(q), unaligned(k), unaligned(v), mask)
+    errs = [(got.float() - serve_ops.masked_attention_plain(q, k, v, mask).float()).abs().max()]
+    q, k, v, km, do = smoke_train._site_inputs(train, bf16, device, seed)
+    got = smoke_train._fwd_bwd(tfn, unaligned(q), unaligned(k), unaligned(v), km, train.causal,
+                               unaligned(do))
+    ref = smoke_train._fwd_bwd(train_ops.train_flash_attention_plain, q, k, v, km,
+                               train.causal, do)
+    errs += [(a.float() - b.float()).abs().max() / max(1.0, b.float().abs().max().item())
+             for a, b in zip(got, ref)]
+    tc = (fn.launches_tc - counts[1], tfn.launches_tc - tcounts[1],
+          tfn.backward_launches_tc - tcounts[3])
+    fn.launches, fn.launches_tc = counts
+    smoke_train._restore(tfn, tcounts)
+    err = max(e.item() for e in errs)
+    log(f"unaligned views: {site.name} and {train.name} in bf16 on the SIMT kernels "
+        f"(tensor-core launches {tc}), max abs err {err:.3g}")
+    check(tc == (0, 0, 0) and err <= TOL[bf16],
+          f"unaligned bf16 views: tensor-core launches {tc}, max abs err {err:.3g}")
+
+
 def phase_kernel_check(device, prompt_bucket: int, B_serve: int, B_train: int, bucket: int,
                        seed: int = 0) -> tuple[list[dict], list[dict]]:
     """Kernel 1 at every new serving site (and the registry NAR's packed
     site at the full prompt) and kernel 2 at every new training site, fp32
-    and bf16 (forward, and dq / dk / dv), timed in bf16; kernel 2's
-    backward twice at the DiT's Dh-32 self-attention, bit-identical."""
+    and bf16 (forward, and dq / dk / dv), timed in bf16; every bf16 call on
+    the tensor cores, and unaligned views on the SIMT kernels
+    (``check_unaligned``); kernel 2's backward twice at Dh 32, 16 and 8
+    (``DETERMINISM_SITES``), bit-identical."""
     from . import smoke_train
 
     serve, train = kernel_sites(prompt_bucket, B_serve, B_train, bucket)
@@ -178,8 +219,15 @@ def phase_kernel_check(device, prompt_bucket: int, B_serve: int, B_train: int, b
     serve.append(Site("gaussian unet2d-ref: NAR packed self", T, T, 16, 64, 84))
     serve_results = [r for s in serve for r in phase_site_check(device, s, B_serve, seed=seed)]
     train_results = smoke_train.phase_train_kernel_check(device, train, seed=seed)
-    smoke_train.check_backward_determinism(
-        next(s for s in train if s.name == "gaussian dit: DiT self"), device, seed=seed)
+    if device.type == "cuda":
+        simt = [f"{r['site']} (Dh {r['Dh']})" for r in [*serve_results, *train_results]
+                if r["dtype"] == "bfloat16" and {r["route"], r.get("route_bwd", "tc")} != {"tc"}]
+        check(not simt, f"bf16 Gaussian sites on the SIMT kernels: {simt}")
+        with full_fp32():
+            check_unaligned(serve[0], B_serve, train[0], device, seed)
+        for name in DETERMINISM_SITES:
+            smoke_train.check_backward_determinism(next(s for s in train if s.name == name),
+                                                   device, seed=seed)
     return serve_results, train_results
 
 
@@ -210,22 +258,24 @@ def serve_gaussian(synth, nar_dims: dict, requests, label: str, repeats: int) ->
     first.generate = keep
     try:
         _sync(device)
-        fn.launches, fn.plain_calls = 0, 0
+        fn.launches, fn.launches_tc, fn.plain_calls = 0, 0, 0
         t0 = time.perf_counter()
         codes, wavs = synth._device_batch(prepared, seeds, want_wav=True)
         _sync(device)
         first_s = time.perf_counter() - t0
-        launches, plain = fn.launches, fn.plain_calls
+        launches, launches_tc, plain = fn.launches, fn.launches_tc, fn.plain_calls
     finally:
         del first.generate
     on_card = device.type == "cuda"
     log(f"{label}: first batch of {len(requests)} in {first_s:.3f} s ({synth.denoiser_calls} "
-        f"denoiser calls); prompt bucket {pb}; kernel launches {launches}, plain calls {plain}, "
-        f"expected {expected}")
+        f"denoiser calls); prompt bucket {pb}; kernel launches {launches} ({launches_tc} on the "
+        f"tensor cores), plain calls {plain}, expected {expected}")
     check((launches if on_card else plain) == expected,
           f"{label}: attention calls {launches if on_card else plain} != expected {expected}")
     if on_card:
         check(plain == 0, f"{label}: the plain path ran on the card")
+        check(launches_tc == launches,
+              f"{label}: {launches - launches_tc} of {launches} bf16 launches on the SIMT kernels")
     gl = synth.gen_len
     toks = firsts[0]
     check(toks.shape == (len(requests), first.config.resp_len) and (toks[:, gl:] == 0).all(),
@@ -250,7 +300,8 @@ def serve_gaussian(synth, nar_dims: dict, requests, label: str, repeats: int) ->
     if p50 is not None:
         log(f"{label}: synthesize_batch of {len(requests)} p50 {p50 * 1e3:.1f} ms over "
             f"{repeats} ({'host clock around synchronised work' if on_card else 'cpu'})")
-    return {"launches": launches, "plain": plain, "expected": expected, "sites": sites,
+    return {"launches": launches, "launches_tc": launches_tc, "plain": plain,
+            "expected": expected, "sites": sites,
             "prompt_bucket": pb, "first_s": first_s, "p50_s": p50, "times_s": times}
 
 
@@ -311,7 +362,12 @@ def phase_gaussian(device, nar_bundle: Path, seed: int = 0, repeats: int = 3,
             overrides=(f"model={name}", *overrides, *([_flow(mo)] if mo else [])))
         res = {k: tr[k] for k in ("p50_step_s", "p90_step_s", "frames_per_s", "peak_bytes",
                                   "fwd_per_step", "bwd_per_step", "run_launches",
-                                  "eval_launches", "losses", "steps", "decodes", "moved")}
+                                  "run_launches_tc", "eval_launches", "losses", "steps",
+                                  "decodes", "moved")}
+        if device.type == "cuda":
+            check(res["run_launches_tc"] == res["run_launches"],
+                  f"train {name}: {res['run_launches'] - res['run_launches_tc']} of "
+                  f"{res['run_launches']} bf16 kernel-2 launches on the SIMT kernels")
         res["sites"] = tr["sites"]
         peak = res["peak_bytes"]
         log(f"train {name}: step p50 {res['p50_step_s'] * 1e3:.1f} ms, "

@@ -52,8 +52,8 @@ STEPS = 4
 TRACED_STEPS = 2
 PROFILE = ("profile_every=2", "profile_n_steps=2", "eval_decode_audio=false")
 #: CUDA kernel names of each attention library in a trace
-LIBRARY_KERNELS = {"masked_attention": ("fwd_kernel<false>", "masked_attention_kernel"),
-                   "train_flash_attention": ("fwd_kernel<true>", "wgmma_kernel",
+LIBRARY_KERNELS = {"masked_attention": ("fwd_kernel<false,", "masked_attention_kernel"),
+                   "train_flash_attention": ("fwd_kernel<true,", "wgmma_kernel",
                                              "bwd_dkdv_kernel", "bwd_dq_kernel")}
 POLICIES = (None, "dots", "dots_all", "nothing")
 #: a policy's gradient against whole-block recompute's: the same arithmetic,

@@ -32,7 +32,7 @@ from .data import dataset
 from .ops import masked_attention as serve_ops
 from .ops import train_flash_attention as train_ops
 from .smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, REPO, SMOKE_DIR, TOL, _eager_ms, _time_ms,
-                    check, default_symmap, full_fp32, log, work)
+                    check, check_route, default_symmap, full_fp32, log, work)
 
 REPLACES = "tts_with_diffusion_model_tpu/ops/attention.py:59"
 SOURCE = "tts_with_diffusion_model_tpu_torch/csrc/train_flash_attention.cu"
@@ -301,24 +301,42 @@ def _sdpa(q, k, v, km, causal):
     return o.transpose(1, 2)
 
 
+def _counters(fn) -> tuple[int, ...]:
+    return (fn.launches, fn.launches_tc, fn.backward_launches, fn.backward_launches_tc,
+            fn.plain_calls)
+
+
+def _restore(fn, counts):
+    (fn.launches, fn.launches_tc, fn.backward_launches, fn.backward_launches_tc,
+     fn.plain_calls) = counts
+
+
 def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> dict:
     """The wrapper (kernel on the card) against the plain version on the same
-    inputs, forward and gradients; then (``time_it``) device ms of the
+    inputs, forward and gradients, the routes of its forward and backward
+    held to ``route.tensor_core_route``; then (``time_it``) device ms of the
     kernel's forward and backward, and of the forward and forward + backward
     of the plain version and of SDPA with a boolean key mask: calls captured
     in a CUDA graph and replayed between CUDA events (``smoke._time_ms``,
     host launch cost excluded, inputs L2-warm); and the kernel's eager wall
     ms per forward and per backward call (host cost included)."""
     fn = train_ops.train_flash_attention
-    counts = (fn.launches, fn.backward_launches, fn.plain_calls)
+    counts = _counters(fn)
     q, k, v, km, do = _site_inputs(s, dtype, device, seed)
     got = _fwd_bwd(fn, q, k, v, km, s.causal, do)
+    tc = (fn.launches_tc - counts[1], fn.backward_launches_tc - counts[3])
     ref = _fwd_bwd(train_ops.train_flash_attention_plain, q, k, v, km, s.causal, do)
     if device.type == "cuda":
         torch.cuda.synchronize()
     res = {"site": s.name, "B": s.B, "Tq": s.Tq, "Tk": s.Tk, "H": s.H, "Dh": s.Dh,
            "causal": s.causal, "dtype": str(dtype).replace("torch.", ""),
            "fwd": s.fwd, "bwd": s.bwd, "path": s.path, "fused": s.fused}
+    if device.type == "cuda":
+        o = got[0]
+        res["route"] = check_route(f"train_flash_attention {s.name} {dtype} forward", tc[0],
+                                   s.Dh, dtype, (q, k, v, o))
+        res["route_bwd"] = check_route(f"train_flash_attention {s.name} {dtype} backward",
+                                       tc[1], s.Dh, dtype, (q, k, v, o, do))
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
         check(bool(torch.isfinite(a).all()), f"{s.name} {dtype}: non-finite {name}")
         err = (a.float() - b.float()).abs().max().item()
@@ -361,7 +379,7 @@ def check_train_site(s: TrainSite, dtype, device, seed: int, time_it: bool) -> d
         res["vs_library_bwd"] = res["ms_bwd"] / lib_bwd
         res["vs_bound_fwd"] = res["ms_fwd"] / res["fwd_bound_ms"]
         res["vs_bound_bwd"] = res["ms_bwd"] / res["bwd_bound_ms"]
-    fn.launches, fn.backward_launches, fn.plain_calls = counts
+    _restore(fn, counts)
     return res
 
 
@@ -377,10 +395,14 @@ def phase_train_kernel_check(device, sites: list[TrainSite], seed: int = 0) -> l
                 results.append(r)
                 log(json.dumps(r))
                 if "vs_library_fwd" in r:
+                    f_tc = s.fwd if r["route"] == "tc" else 0
+                    b_tc = s.bwd if r["route_bwd"] == "tc" else 0
                     log(f"ratio: train_flash_attention {r['site']} {r['Tq']}x{r['Tk']} "
-                        f"(B={r['B']}): kernel/SDPA fwd {r['vs_library_fwd']:.3f} bwd "
+                        f"(B={r['B']}, Dh {r['Dh']}): kernel/SDPA fwd {r['vs_library_fwd']:.3f} bwd "
                         f"{r['vs_library_bwd']:.3f}, kernel/bound fwd {r['vs_bound_fwd']:.2f} "
-                        f"bwd {r['vs_bound_bwd']:.2f}")
+                        f"bwd {r['vs_bound_bwd']:.2f}; launches per step {s.fwd} + {s.bwd}: "
+                        f"{f_tc} + {b_tc} tensor cores, {s.fwd - f_tc} + {s.bwd - b_tc} "
+                        f"SIMT")
     return results
 
 
@@ -389,7 +411,7 @@ def check_backward_determinism(s: TrainSite, device, seed: int = 0) -> dict:
     masks, one all-masked row) must give bit-identical dq, dk and dv: the
     split has no atomics.  The comparison's launches are not counted."""
     fn = train_ops.train_flash_attention
-    counts = (fn.launches, fn.backward_launches, fn.plain_calls)
+    counts = _counters(fn)
     q, k, v, km, do = _site_inputs(s, torch.bfloat16, device, seed)
     o, lse = train_ops._forward(q, k, v, km, s.causal)
     first = train_ops._backward(q, k, v, km, o, lse, do, s.causal)
@@ -397,8 +419,10 @@ def check_backward_determinism(s: TrainSite, device, seed: int = 0) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     same = {name: bool(torch.equal(a, b)) for name, a, b in zip(("dq", "dk", "dv"), first, second)}
-    fn.launches, fn.backward_launches, fn.plain_calls = counts
-    log(f"determinism: train_flash_attention backward at {s.name} (B={s.B}, {s.Tq}x{s.Tk}): "
+    tc = fn.backward_launches_tc - counts[3]
+    _restore(fn, counts)
+    log(f"determinism: train_flash_attention backward at {s.name} (B={s.B}, {s.Tq}x{s.Tk}, "
+        f"Dh {s.Dh}, {'tensor cores' if tc == 2 else 'SIMT'}): "
         + ", ".join(f"{n} {'bit-identical' if ok else 'DIFFERS'}" for n, ok in same.items()))
     check(all(same.values()), f"{s.name}: two backward calls differ in {same}")
     return same
@@ -428,22 +452,28 @@ def _step_totals(timed: list[dict]) -> dict:
     return {"ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": sum(bound.values()) if timed else None,
             "bound_by": "bytes" if bound["bytes"] >= bound["operations"] else "operations",
-            "library_ms": total("library_ms")}
+            "library_ms": total("library_ms"),
+            "launches_tc": sum(r["fwd"] * (r.get("route") == "tc") +
+                               r["bwd"] * (r.get("route_bwd") == "tc") for r in timed)}
 
 
 def train_kernel_summary(results: list[dict], runs: list[tuple[str, int, int, int]],
-                         eval_runs=()) -> dict:
+                         eval_runs=(), runs_tc: dict | None = None) -> dict:
     """The training kernel's line.  ``runs``: (path, forward and backward
     launches per step, launches counted over the path's run) for each train
-    path driven; each path gets its per-step sums over its timed sites, and
+    path driven; each path gets its per-step sums over its timed sites (with
+    ``launches_tc``, those of its sites' launches on the tensor cores), and
     the top level sums one step of every path.  ``eval_runs``, alike per
     eval or serving batch (the AR's val loss, the AR prefill), are listed
-    under ``paths`` but not summed."""
+    under ``paths`` but not summed.  ``runs_tc``: per path, the run's
+    launches counted on the tensor cores (``launches_tc_run``)."""
     paths = {}
     for path, fwd, bwd, run_launches in [*runs, *eval_runs]:
         timed = [r for r in results if r["path"] == path and "ms_fwd" in r and (r["fwd"] or r["bwd"])]
         paths[path] = {"launches": fwd + bwd, "launches_fwd": fwd, "launches_bwd": bwd,
                        "launches_run": run_launches, **_step_totals(timed)}
+        if runs_tc and path in runs_tc:
+            paths[path]["launches_tc_run"] = runs_tc[path]
     trained = [paths[r[0]] for r in runs]
 
     def total(key):
@@ -458,7 +488,9 @@ def train_kernel_summary(results: list[dict], runs: list[tuple[str, int, int, in
         "source": SOURCE,
         "replaces": REPLACES,
         "launches": sum(p["launches"] for p in trained),
+        "launches_tc": sum(p["launches_tc"] for p in trained),
         "launches_run": sum(p["launches_run"] for p in paths.values()),
+        "launches_tc_run": sum(p.get("launches_tc_run", 0) for p in paths.values()),
         "max_abs_err": max(r["max_abs_err"] for r in results if r["dtype"] == "bfloat16"),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -548,11 +580,12 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     log(f"train: {' '.join(argv)}")
 
     fn, serve = train_ops.train_flash_attention, serve_ops.masked_attention
-    records = []
+    records, tc = [], []
 
     def step_logger(data):
         trainer.logger(data)
         records.append((data, fn.launches, fn.backward_launches, fn.plain_calls))
+        tc.append(fn.launches_tc + fn.backward_launches_tc)
 
     def counts():
         if device.type == "cuda":
@@ -565,8 +598,8 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
     data_logger = logging.getLogger(dataset.__name__)
     train_logger.addHandler(evals)
     data_logger.addHandler(loader_lines)
-    fn.launches = fn.backward_launches = fn.plain_calls = 0
-    serve.launches = serve.plain_calls = 0
+    fn.launches = fn.launches_tc = fn.backward_launches = fn.backward_launches_tc = 0
+    fn.plain_calls = serve.launches = serve.plain_calls = 0
     # the run's own peak: memory that earlier phases still hold is left out
     held = torch.cuda.memory_allocated(device) if device.type == "cuda" else None
     if device.type == "cuda":
@@ -658,7 +691,8 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
              "p50_step_s": p50, "p90_step_s": p90, "frames_per_s": frames / p50,
              "peak_bytes": peak, "held_bytes": held, "loader": loader, "decodes": decodes,
              "fwd_per_step": want_fwd, "bwd_per_step": want_bwd,
-             "run_launches": prev[0] + prev[1], "eval_kernel": eval_kernel,
+             "run_launches": prev[0] + prev[1], "run_launches_tc": tc[-1] if tc else 0,
+             "eval_kernel": eval_kernel,
              "eval_launches": served, "eval_per_batch": per_eval_batch, "eval": eval_lines,
              "moved": moved, "ema_moved": ema_moved,
              "losses": [r[0]["model.loss"] for r in records], "sites": sites,
@@ -671,6 +705,7 @@ def phase_train(device, yaml: Path = TRAIN_YAML, seed: int = 0, steps: int = 8, 
         f"{out_d['frames_per_s']:.0f} padded frames/s "
         f"(B={cfg.batch_size} x bucket {bucket}); peak allocated {mem}")
     log(f"train {cfg.model}: kernel launches per step {per_step_counts[0]} (fwd, bwd, plain) = "
-        f"{want_fwd} fwd + {want_bwd} bwd derived from the config; eval: {served} {eval_kernel} "
+        f"{want_fwd} fwd + {want_bwd} bwd derived from the config, {out_d['run_launches_tc']} of "
+        f"the run's {out_d['run_launches']} on the tensor cores; eval: {served} {eval_kernel} "
         f"calls ({per_eval_batch} per batch); losses {[round(x, 4) for x in out_d['losses']]}")
     return out_d
