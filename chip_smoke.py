@@ -40,7 +40,15 @@ published widths for 2 steps from seeded weights, each served through a
 ``Synthesizer`` over the exported NAR (100 denoiser calls, 2488 / 788 / 84
 kernel-1 launches per batch, every bf16 launch of both kernels on the
 tensor cores) with fp32 codes held identical alone and in a
-cohort of 4 through the ``Batcher``; then codec + evals: a
+cohort of 4 through the ``Batcher``; then wide heads (``smoke_wide.py``):
+both kernels held to their plain versions at Dh 40, 80, 96 and 128 (bf16 on
+the tensor cores, fp32 on the SIMT kernels) and at Dh 4, 12, 136 and 256
+(the SIMT kernels in both dtypes), forward and backward, and the registry
+D3PM and NAR with
+fewer, wider heads (``model_overrides`` {n_heads: 4} and {n_heads: 8}, Dh
+128) trained 4 steps each (52 + 28 and 24 + 12 kernel-2 launches per step),
+exported and served with MaskGIT (376 kernel-1 launches per batch), every
+launch on the tensor cores; then codec + evals: a
 ``make_gen_corpus.py`` corpus (8 speakers × 11 utterances), ``codec.calibrate``
 at 8 levels × 1024 codes × 128 dims from the seeded codec (the residual RMS
 falling level by level), ``emb.qnt`` with the calibrated codec, 8 steps of
@@ -60,9 +68,10 @@ counted and both kernels held to their plain versions at every per-rank
 shape.
 Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
-wgmma (HGMMA, and HGMMA at each of the shapes 64x8x16, 64x16x16, 64x32x16
-and 64x64x16) and TMA (UTMALDG) instructions in each library, holds each
-kernel against its plain PyTorch version at every shape these paths give it
+wgmma (HGMMA, and HGMMA at each of the shapes 64x8x16, 64x16x16, 64x32x16,
+64x64x16 and 64x128x16) and TMA (UTMALDG) instructions in each library,
+holds each kernel against its plain PyTorch version at every shape these
+paths give it
 (printing each site's kernel/SDPA and kernel/bound ratios and its launches
 on the tensor cores and on the SIMT kernels; the route each launch reports
 held to ``ops/route.tensor_core_route``), checks that the
@@ -108,6 +117,7 @@ def main() -> int:
             smoke_parallel,
             smoke_serve,
             smoke_train,
+            smoke_wide,
         )
     except ImportError as e:
         print(f"chip_smoke: FAILED: cannot import the port ({e})", file=sys.stderr)
@@ -297,6 +307,33 @@ def main() -> int:
     train_results += g_train
     del gs
     torch.cuda.empty_cache()
+    # wide heads: both kernels at head widths off the registry's (on the
+    # SIMT kernels where the tensor cores do not take the width), then the
+    # registry D3PM and NAR at Dh 128 through train -> export -> serve
+    wide_yamls = smoke_wide.write_configs()
+    with smoke.phase("wide heads kernel vs plain"):
+        w_serve, w_train = smoke_wide.phase_kernel_check(
+            device, wide_yamls, len(smoke.TEXTS), seed=args.seed)
+    with smoke.phase("train -> export -> serve wide heads"):
+        wide = smoke_wide.phase_wide(device, wide_yamls, seed=args.seed, repeats=args.repeats,
+                                     smi=info["smi"])
+    for name, path, want in (("diffusion", "wide d3pm", (52, 28)), ("nar", "wide nar", (24, 12))):
+        r = wide["runs"][name]
+        smoke.check((r["fwd_per_step"], r["bwd_per_step"]) == want,
+                    f"{path}: kernel-2 launches per step {r['fwd_per_step']}+"
+                    f"{r['bwd_per_step']} != {want[0]}+{want[1]}")
+        runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
+        runs_tc[path] = r["run_launches_tc"]
+    served = wide["served"]
+    smoke.check(served["prompt_bucket"] == 256 and served["expected"] == 376,
+                f"serve wide: prompt bucket {served['prompt_bucket']}, expected launches "
+                f"{served['expected']} != 256, 376")
+    paths["wide maskgit"] = dict(smoke_gaussian.path_totals(w_serve, served["sites"],
+                                                            served["launches"]),
+                                 launches_tc_run=served["launches_tc"])
+    train_results += w_train
+    del wide, served
+    torch.cuda.empty_cache()
     # the codec's bootstrap and the four evaluations over the exported bundles
     with smoke.phase("codec + evals"):
         ce = smoke_codec.phase_codec_evals(
@@ -322,7 +359,8 @@ def main() -> int:
     eval_runs += par["runs2"]
     kernels = [smoke.kernel_summary(results, sl_launches, eval_results, nar_eval_launches,
                                     paths, checked=[*ar_nar_results, *d3pm_decode_results,
-                                                    *g_serve, *ce_kernel1, *par["kernel1"]],
+                                                    *g_serve, *w_serve, *ce_kernel1,
+                                                    *par["kernel1"]],
                                     launches_tc=sl_launches_tc),
                smoke_train.train_kernel_summary(train_results, runs, eval_runs, runs_tc)]
     smoke.log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s "

@@ -1,8 +1,9 @@
 """The port's masked attention against the JAX package's: the plain version
 against the Pallas kernel run in interpret mode and against the pair-mask
 dense path (valid query rows), both plain versions (forward and gradients)
-against ``_dense_ref`` at the Gaussian family's head widths, and the
-wrapper's input checks.  The CUDA kernel itself is held against the plain
+against ``_dense_ref`` at the Gaussian family's head widths and at widths
+off the registry's (4, 12, 40, 80, 128, 136, through ``route.attend``),
+and the wrapper's input checks.  The CUDA kernel itself is held against the plain
 version in ``test_torch_gpu.py`` and ``test_torch_gaussian_gpu.py``."""
 
 import jax
@@ -70,6 +71,44 @@ def test_plain_versions_match_dense_ref_at_the_gaussian_head_widths(Dh):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+#: head widths off the registry's: between and past the kernels'
+#: instantiations (40, 80, 128) and widths only the SIMT kernels take (4,
+#: 12, 136)
+WIDTHS = [4, 12, 40, 80, 128, 136]
+
+
+@pytest.mark.parametrize("Dh", WIDTHS)
+def test_plain_versions_match_jax_at_every_head_width(Dh):
+    """Both plain versions against JAX's ``_dense_ref``, forward and dq, dk,
+    dv, with an all-masked row; kernel 1's also against the Pallas kernel
+    in interpret mode where its ``supported`` takes the width (Dh % 8 == 0).
+    ``route.attend`` runs each width on the CPU, with and without grad (the
+    SIMT kernels at 4, 12 and 136 on the card, in bf16 too)."""
+    from tts_with_diffusion_model_tpu.ops.flash_attention import supported
+    from tts_with_diffusion_model_tpu_torch.ops.route import attend
+
+    q, k, v, km, _ = _inputs(B=2, Tq=40, Tk=64, H=2, Dh=Dh, seed=Dh)
+    km[1] = 0.0
+    do = np.random.RandomState(Dh + 1).randn(*q.shape).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a, b, c: _dense_ref(a, b, c, jnp.asarray(km)),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(do))
+    got = masked_attention_plain(t(q), t(k), t(v), t(km)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), atol=FP32_TOL)
+    if supported(q.shape, k.shape):
+        interp = _flash_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
+                             interpret=True)
+        np.testing.assert_allclose(got, np.asarray(interp), atol=FP32_TOL)
+    with torch.no_grad():
+        np.testing.assert_array_equal(attend(t(q), t(k), t(v), t(km)).numpy(), got)
+    qg, kg, vg = (t(a).requires_grad_(True) for a in (q, k, v))
+    o = attend(qg, kg, vg, t(km))
+    (o * t(do)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref), atol=FP32_TOL)
+    for g, want in zip((qg.grad, kg.grad, vg.grad), ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=1e-4)
+
+
 def test_plain_matches_dense_pair_mask_on_valid_rows():
     q, k, v, km, qm = _inputs()
     pair = qm[:, :, None] * km[:, None, :]
@@ -112,8 +151,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         km = km.bool()
     elif bad == "shape":
         k = k[:, :, :1]
-    elif bad == "head_width":
-        q, k, v = q[..., :12], k[..., :12], v[..., :12]
+    elif bad == "head_width":  # empty (any other width runs on the CPU)
+        q, k, v = q[..., :0].contiguous(), k[..., :0].contiguous(), v[..., :0].contiguous()
     elif bad == "mask_shape":
         km = km[:, :-1]
     elif bad == "mixed_dtype":

@@ -16,6 +16,7 @@ the first denoiser call under tp=2 against JAX's single-device logits within
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -534,7 +535,7 @@ def test_serve_cli_under_torchrun_with_mesh_tp_2(world2):
     """``torch.distributed.run --nproc-per-node 2 -m ...serve --mesh-tp 2``:
     rank 0 answers 3 /tts requests (its follower runs each device batch),
     SIGTERM to rank 0 drains and stops the follower, and both ranks and the
-    launcher exit 0."""
+    launcher exit 0 with no abort in the launcher's stderr."""
     from tts_with_diffusion_model_tpu_torch import smoke
 
     out, _ = world2
@@ -571,8 +572,58 @@ def test_serve_cli_under_torchrun_with_mesh_tp_2(world2):
         assert proc.wait(timeout=P.CHILD_TIMEOUT_S) == 0, "".join(log)
         timer.cancel()
         assert any("follower rank 1: " in line for line in log), "".join(log)
+        assert not any("terminate called" in line for line in log), "".join(log)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
         proc.stderr.close()
+
+
+#: the modules torchrun launches, and the package their ``__main__`` block
+#: imports from
+TORCHRUN_ENTRY_POINTS = ["serve", "train.train", "train.__main__", "export", "codec.train"]
+
+
+def _main_block(module: str):
+    """The ``if __name__ == "__main__":`` block of a port module, compiled
+    on its own, and the package its relative imports resolve in."""
+    import ast
+
+    name = f"tts_with_diffusion_model_tpu_torch.{module}"
+    path = P.REPO / (name.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text())
+    block = next(node for node in tree.body if isinstance(node, ast.If)
+                 and ast.unparse(node.test) in ("__name__ == '__main__'", '__name__ == "__main__"'))
+    return compile(ast.Module(body=block.body, type_ignores=[]), str(path), "exec"), \
+        name.rsplit(".", 1)[0]
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["returns", "raises"])
+@pytest.mark.parametrize("module", TORCHRUN_ENTRY_POINTS)
+def test_entry_point_tears_its_process_group_down(module, fails, tmp_path):
+    """Each entry point's ``__main__`` block, its ``main`` standing in for a
+    rank that joins a gloo group (a world of one over a file store) and then
+    returns or raises, leaves no process group up
+    (``distributed.shutdown_distributed``): a group left up at exit is
+    destroyed in the interpreter's teardown, which aborted a torchrun rank
+    now and then after its work was done ("terminate called without an
+    active exception")."""
+    import torch.distributed as dist
+
+    code, package = _main_block(module)
+
+    def main():
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                                world_size=1, rank=0)
+        if fails:
+            raise RuntimeError("the entry point failed")
+
+    assert not dist.is_initialized()
+    try:
+        with pytest.raises(RuntimeError) if fails else contextlib.nullcontext():
+            exec(code, {"__name__": "__main__", "__package__": package, "main": main})
+        assert not dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -1,10 +1,12 @@
 """The route rule of both attention kernels (``ops/route.tensor_core_route``,
 the Python statement of ``hopper::tensor_core_route`` that each library
-applies and reports): tensor cores for bf16 at every site the main paths
-give the kernels at registry widths (head widths 8, 16, 32 and 64, fused
-qkv views included), SIMT for fp32, unaligned views and other widths, and
-a refusal past 64.  Runs on the CPU: tensors are allocated, not filled; the
-libraries' own routes are held to this rule on the card (``chip_smoke.py``,
+applies and reports, and ``kernel_width``): tensor cores for bf16
+at every site the main paths give the kernels at registry widths (head
+widths 8, 16, 32 and 64, fused qkv views included) and at every multiple of
+8 up to 128, SIMT for fp32, unaligned views and every other width up to 256
+(not a multiple of 8, or past 128), and no kernel past 256.  Runs on the CPU:
+tensors are allocated, not filled; the libraries' own routes are held to
+this rule on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``,
 ``tests/test_torch_gaussian_gpu.py``)."""
 
 import pytest
@@ -13,7 +15,9 @@ import torch
 from tts_with_diffusion_model_tpu_torch import smoke, smoke_gaussian, smoke_train
 from tts_with_diffusion_model_tpu_torch.models.diffusion import DiffusionConfig
 from tts_with_diffusion_model_tpu_torch.ops.route import (
-    TENSOR_CORE_WIDTHS,
+    MAX_DH,
+    MAX_TC_DH,
+    kernel_width,
     tensor_core_route,
     tma_aligned,
 )
@@ -58,7 +62,7 @@ def _sites(which):
 def test_every_bf16_site_takes_the_tensor_cores(which):
     sites = _sites(which)
     widths = {s[5] for s in sites}
-    assert sites and widths <= set(TENSOR_CORE_WIDTHS)
+    assert sites and widths <= {8, 16, 32, 64}
     for name, B, Tq, Tk, H, Dh, fused in sites:
         ts = _tensors(B, Tq, Tk, H, Dh, torch.bfloat16, fused)
         assert tma_aligned(*ts), name
@@ -75,8 +79,10 @@ def test_the_gaussian_sites_cover_head_widths_8_16_and_32():
 @pytest.mark.parametrize("case", ["fp32", "time stride", "batch stride", "base", "Dh 24",
                                   "Dh 40"])
 def test_simt_route(case):
+    # "Dh 24" / "Dh 40": fp32 at a width between two instantiations (bf16
+    # there takes the tensor cores, test_route_by_width)
     Dh = {"Dh 24": 24, "Dh 40": 40}.get(case, 32)
-    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    dtype = torch.float32 if case in ("fp32", "Dh 24", "Dh 40") else torch.bfloat16
     q, k, v, o = _tensors(2, 50, 63, 2, Dh, dtype)
     if case == "time stride":
         k = smoke.unaligned(k)  # time stride H·Dh + 4
@@ -98,7 +104,40 @@ def test_size_one_dimensions_are_not_checked():
     assert tensor_core_route(8, torch.bfloat16, tma_aligned(t))
 
 
-@pytest.mark.parametrize("Dh", [72, 128, 12, 0])
+@pytest.mark.parametrize("Dh", [0, 257, 264, 512])
 def test_refused_widths(Dh):
+    # no kernel takes these widths: the wrappers raise on the card
+    assert not kernel_width(Dh)
     with pytest.raises(ValueError):
         tensor_core_route(Dh, torch.bfloat16, True)
+
+
+#: (Dh, the route of an aligned bf16 call, of an fp32 call)
+ROUTES = [(4, "simt", "simt"), (8, "tc", "simt"), (12, "simt", "simt"), (16, "tc", "simt"),
+          (24, "tc", "simt"), (32, "tc", "simt"), (40, "tc", "simt"), (56, "tc", "simt"),
+          (64, "tc", "simt"), (72, "tc", "simt"), (80, "tc", "simt"), (96, "tc", "simt"),
+          (120, "tc", "simt"), (128, "tc", "simt"), (130, "simt", "simt"),
+          (136, "simt", "simt"), (256, "simt", "simt"), (257, "none", "none")]
+
+
+def _route(Dh, dtype, aligned=True):
+    if not kernel_width(Dh):
+        return "none"
+    return "tc" if tensor_core_route(Dh, dtype, aligned) else "simt"
+
+
+@pytest.mark.parametrize("Dh,bf16,fp32", ROUTES, ids=[f"Dh {r[0]}" for r in ROUTES])
+def test_route_by_width(Dh, bf16, fp32):
+    """The route table by head width and dtype: every multiple of 8 up to
+    128 on the tensor cores in bf16, SIMT in fp32 or unaligned; every other
+    width up to 256 on SIMT; none past 256."""
+    assert _route(Dh, torch.bfloat16) == bf16
+    assert _route(Dh, torch.float32) == fp32
+    assert _route(Dh, torch.bfloat16, aligned=False) == ("none" if bf16 == "none" else "simt")
+
+
+def test_kernel_widths_are_1_to_256_and_the_tensor_cores_take_multiples_of_8_to_128():
+    assert (MAX_DH, MAX_TC_DH) == (256, 128)
+    assert [d for d in range(300) if kernel_width(d)] == list(range(1, 257))
+    tc = [d for d in range(1, 257) if tensor_core_route(d, torch.bfloat16, True)]
+    assert tc == list(range(8, 129, 8))

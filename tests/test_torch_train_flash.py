@@ -2,7 +2,8 @@
 against the JAX package's own ``_train_flash_attention``, the library Pallas
 TPU kernel, run in the Pallas interpreter on the CPU: forward and the
 gradients of q, k, v, ragged Tq ≠ Tk that are not multiples of 128, causal
-and not, fp32 and bf16.  The Hopper kernel is held against the same plain
+and not, fp32 and bf16, at the registry's head widths and at 4, 12, 40, 80,
+128 and 136.  The Hopper kernel is held against the same plain
 version on the card (``test_torch_gpu.py``, ``chip_smoke.py``)."""
 
 import jax
@@ -77,6 +78,21 @@ def test_plain_matches_the_library_tpu_kernel_in_interpret_mode(B, Tq, Tk, H, Dh
                              q, k, v, km, do, jdt)
     got = _port_fwd_grads(q, k, v, km, do, causal, tdt)
     _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("Dh,causal", [(4, False), (12, True), (40, False), (80, True),
+                                      (128, False), (136, True)])
+def test_plain_matches_the_library_tpu_kernel_at_every_head_width(Dh, causal):
+    """Head widths off the registry's, in fp32: between and past the
+    kernels' instantiations (40, 80, 128) and widths only the SIMT kernels
+    take on the card (4, 12, 136).  The library kernel takes
+    the head width whole in its blocks."""
+    q, k, v, km, do = _inputs(2, 40, 64, 2, Dh, seed=Dh)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _jax_fwd_grads(lambda a, b, c, m: _train_flash_attention(a, b, c, m, causal=causal),
+                             q, k, v, km, do, jnp.float32)
+    got = _port_fwd_grads(q, k, v, km, do, causal, torch.float32)
+    _assert_close(got, ref, "float32")
 
 
 def test_all_masked_row_matches_the_dense_path_and_stops_the_gradient():

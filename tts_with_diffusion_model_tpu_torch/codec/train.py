@@ -133,4 +133,9 @@ def main(cfg: Config | None = None, logger=trainer.logger, segment_frames: int =
 
 
 if __name__ == "__main__":
-    main()
+    from ..utils.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

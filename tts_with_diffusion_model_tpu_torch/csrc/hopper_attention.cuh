@@ -1,15 +1,23 @@
 // Hopper (sm_90a) building blocks shared by csrc/masked_attention.cu and
 // csrc/train_flash_attention.cu, and the one forward mainloop both use.
 // Everything that depends on the head width is a template on DH, one of
-// 8, 16, 32 and 64 (Width<DH>); each width is its own instantiation.
+// 8, 16, 32, 64 and 128 (Width<DH>); each is its own instantiation, and a
+// head width Dh between two of them (any multiple of 8 up to 128) runs at
+// the next one up (instantiated_width): 24 at 32, 40-56 at 64, 72-120 at 128.
 //
-// * Tensor maps: a 4-D TMA map over a (B, T, H, DH) bf16 tensor, read as
-//   (DH, H, T, B) innermost first with the caller's batch and time strides,
+// * Tensor maps: a 4-D TMA map over a (B, T, H, Dh) bf16 tensor, read as
+//   (Dh, H, T, B) innermost first with the caller's batch and time strides,
 //   so a strided view (the NAR's split of a fused qkv) is read in place.  A
-//   box is DH x 1 x 64 x 1: 64 rows of one head, one DH·2-byte row each,
-//   stored with the swizzle whose span is the row: 128-byte at DH 64,
-//   64-byte at 32, 32-byte at 16, none at 8 (16-byte rows, the smallest
-//   inner box TMA takes).  Rows past T are zero-filled by the hardware.
+//   tile is 64 rows of one head in panels of at most 64 columns: DH 128 is
+//   two 64-column panels, each its own box at column 0 or 64, the others
+//   one panel of DH columns.  A box is PW x 1 x 64 x 1 (PW the panel's
+//   columns), one PW·2-byte row each, stored with the swizzle whose span is
+//   the row: 128-byte at PW 64, 64-byte at 32, 32-byte at 16, none at 8
+//   (16-byte rows, the smallest inner box TMA takes).  The map's inner
+//   dimension is the true Dh, so the hardware zero-fills the columns past
+//   Dh of a box, as it zero-fills rows past T: every byte of a tile is
+//   written by TMA.  Zero columns add nothing to a product over the head
+//   width, and the DH-wide outputs store their first Dh columns only.
 //   cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 //   the build needs no -lcuda.
 // * A full/empty mbarrier ring fed by one producer warp with TMA loads
@@ -33,11 +41,12 @@
 // turns into the next product's A operand in registers.
 //
 // Shared-memory layouts (CUTLASS's canonical GMMA layouts, cute/atom/
-// mma_traits_sm90_gmma.hpp, in 16-byte units; a tile's row pitch is DH·2
-// bytes, equal to its swizzle span, so 8 rows are one DH-unit group):
+// mma_traits_sm90_gmma.hpp, in 16-byte units; a panel's row pitch is PW·2
+// bytes, equal to its swizzle span, so 8 rows are one PW-unit group):
 // * K-major (the head width is the reduced dimension: Q, K, V, dO in S, dP,
-//   Sᵀ, dPᵀ): stride between 8-row groups SBO = DH; a k16 step starts 32
-//   bytes further into each row (DH / 16 steps).  Swizzled, the second
+//   Sᵀ, dPᵀ): stride between 8-row groups SBO = PW; a k16 step starts 32
+//   bytes further into each row, and after PW / 16 steps the next panel
+//   begins (DH 128: steps 4-7 read the second panel).  Swizzled, the second
 //   8-column half of a k16 step lies inside the swizzle span and LBO is
 //   unused.  At DH 8 (no swizzle) the k16 step's upper half is the core
 //   matrix LBO further on: the descriptor points it at a zeroed 1 KB block
@@ -46,9 +55,11 @@
 //   read, which could hold an Inf and give 0 · Inf = NaN).
 // * MN-major (the 64 rows are the reduced dimension: V, dO, Q, K as the B
 //   operand of P·V, Pᵀ·dO, dSᵀ·Q, dS·K): a k16 step covers rows
-//   16kk..16kk+15, 16·DH·2 bytes on; its two 8-row groups are DH units
-//   apart: SBO when swizzled (N = DH fits one swizzle span, LBO unused),
-//   LBO without swizzle (DH 8: N is one core matrix, SBO unused).
+//   16kk..16kk+15, 16·PW·2 bytes on; its two 8-row groups are PW units
+//   apart: SBO when swizzled, and LBO is the distance between the 64-column
+//   swizzle atoms along N (DH 128: the second panel, 8 KB on; unused when N
+//   fits one atom); LBO without swizzle (DH 8: N is one core matrix, SBO
+//   unused).
 
 #pragma once
 
@@ -73,31 +84,95 @@ constexpr float kNegInf = -0.7f * FLT_MAX;  // the masked score (finite)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+constexpr int kDhMax = 256;    // the widest head either kernel takes
+constexpr int kTcDhMax = 128;  // the widest head on the tensor cores
+
 // What a head width fixes on this path.
 template <int DH>
 struct Width {
-  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "head width 8, 16, 32 or 64");
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64 || DH == 128,
+                "head width 8, 16, 32, 64 or 128");
   static constexpr int kTileBytes = kRows * DH * 2;  // one 64-row bf16 tile
-  // k16 steps over the head width (DH 8: one, its upper half zeros)
+  static constexpr int kPanelCols = DH < 64 ? DH : 64;  // columns of a panel (PW)
+  static constexpr int kPanels = DH / kPanelCols;       // 2 at DH 128, else 1
+  static constexpr int kPanelBytes = kRows * kPanelCols * 2;
+  // k16 steps over the head width (DH 8: one, its upper half zeros), and
+  // those within one panel
   static constexpr int kSteps = DH < 16 ? 1 : DH / 16;
+  static constexpr int kPanelSteps = kPanelCols < 16 ? 1 : kPanelCols / 16;
   // bytes of the zeroed block a DH-8 k16 step reads as its upper half
   static constexpr int kZeroBytes = DH == 8 ? kRows * 16 : 0;
   // wgmma descriptor layout type (bits 62-63): 1 = 128B, 2 = 64B, 3 = 32B
   // swizzle, 0 = none; the TMA map's swizzle is the same
-  static constexpr uint64_t kLayout = DH == 64 ? 1 : DH == 32 ? 2 : DH == 16 ? 3 : 0;
+  static constexpr uint64_t kLayout =
+      kPanelCols == 64 ? 1 : kPanelCols == 32 ? 2 : kPanelCols == 16 ? 3 : 0;
   static constexpr CUtensorMapSwizzle kSwizzle =
-      DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-      : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : DH == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+      kPanelCols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kPanelCols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : kPanelCols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                         : CU_TENSOR_MAP_SWIZZLE_NONE;
+  // Blocks per SM the kernels are compiled for.  At DH 128 a block's ring
+  // takes 114-131 KB of shared memory, so one block fits an SM whatever the
+  // registers; one block lets a thread hold the dK/dV kernel's two 64-float
+  // accumulators with the score tiles (up to 255 registers) without spills.
+  static constexpr int kFwdBlocks = DH == 128 ? 1 : 3;
+  static constexpr int kDkdvBlocks = DH == 128 ? 1 : 2;
+  static constexpr int kDqBlocks = DH == 128 ? 1 : 3;
 };
 
+// The instantiation a head width Dh on the tensor cores (tc_width) runs at.
+inline int instantiated_width(int Dh) {
+  return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : 128;
+}
+
+// The head widths the kernels take: any from 1 to kDhMax.  Wider heads are
+// refused by the launchers and by the wrappers
+// (ops/masked_attention.kernel_width).
+inline bool kernel_width(int Dh) { return Dh >= 1 && Dh <= kDhMax; }
+
+// The head widths the tensor-core path takes: multiples of 8 (TMA's 16-byte
+// stride rule) up to kTcDhMax.
+inline bool tc_width(int Dh) { return Dh >= 8 && Dh <= kTcDhMax && Dh % 8 == 0; }
+
 // The route of a call, the one rule both launchers follow (and that
-// ops/route.tensor_core_route states in Python): bf16 at a head width of
-// 8, 16, 32 or 64 with every tensor TMA-aligned (tma_ok) runs on the
-// tensor cores; fp32, other widths and unaligned views on the SIMT kernels.
+// ops/route.tensor_core_route states in Python): bf16 at a tc_width with
+// every tensor TMA-aligned (tma_ok) runs on the tensor cores; fp32,
+// unaligned views and the other widths the kernels take on the SIMT kernels.
 inline bool tensor_core_route(int dtype, int Dh, bool aligned) {
-  return dtype == 1 && (Dh == 8 || Dh == 16 || Dh == 32 || Dh == 64) && aligned;
+  return dtype == 1 && tc_width(Dh) && aligned;
+}
+
+// The SIMT kernels hold a row at DW, the head width Dh rounded up to 8, 16,
+// 32, 64, 128 or 256 (columns past Dh are 0; any Dh, its loads scalar).
+inline int simt_width(int Dh) { return Dh <= 128 ? instantiated_width(Dh) : 256; }
+
+// At DW 128 and 256 two and four neighbouring threads share a row, 64
+// columns each, and add their partial dot products with shuffles (row_sum),
+// so no thread holds more than 64 columns and a block's shared-memory tiles
+// shrink with the width.
+template <int DW>
+struct Simt {
+  static_assert(DW == 8 || DW == 16 || DW == 32 || DW == 64 || DW == 128 || DW == 256,
+                "SIMT width 8, 16, 32, 64, 128 or 256");
+  static constexpr int kSplit = DW > 64 ? DW / 64 : 1;  // threads per row
+  static constexpr int kCols = DW / kSplit;             // columns a thread holds
+};
+
+// A partial dot product summed over the kSplit threads of a row (lanes
+// SPLIT·i .. SPLIT·i + SPLIT - 1), in a fixed order.  The shuffles name only
+// those lanes, so a branch that all threads of a row take together may
+// hold it.
+template <int SPLIT>
+__device__ __forceinline__ float row_sum(float x) {
+  if constexpr (SPLIT == 1) {
+    return x;
+  } else {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned mask = ((1u << SPLIT) - 1u) << (lane & ~(unsigned)(SPLIT - 1));
+#pragma unroll
+    for (int o = 1; o < SPLIT; o *= 2) x += __shfl_xor_sync(mask, x, o);
+    return x;
+  }
 }
 
 // ---------------------------------------------------------------- host side
@@ -140,10 +215,11 @@ inline bool tma_ok(const void* p, int n_b, long long sb, int n_t, long long st) 
          (n_t == 1 || st % 8 == 0);
 }
 
-// Map over a (B, T, H, DH) bf16 tensor with element strides sb, st (heads
-// and head width dense).  Returns 0 or an error code.
+// Map over a (B, T, H, Dh) bf16 tensor with element strides sb, st (heads
+// and head width dense), read in boxes of DH's panels; Dh <= DH, and the
+// box columns past Dh read as zeros.  Returns 0 or an error code.
 template <int DH>
-inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
+inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
                     long long sb, long long st) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncoder;
@@ -157,13 +233,13 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
     return e != cudaSuccess ? e : cudaSetDevice(dev);
   }();
   if (ctx != cudaSuccess) return (int)ctx;
-  if (T == 1) st = (long long)H * DH;  // unused; any legal stride
+  if (T == 1) st = (long long)H * Dh;  // unused; any legal stride
   if (B == 1) sb = st * T;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)H, (cuuint64_t)T,
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)st * 2,
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2, (cuuint64_t)st * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {DH, 1, kRows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)Width<DH>::kPanelCols, 1, kRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                    dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -172,9 +248,10 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
   if (rc == CUDA_SUCCESS) return 0;
   fprintf(stderr,
           "cuTensorMapEncodeTiled failed (CUresult %d): base %p, dims (%d, %d, %d, %d), "
-          "byte strides (%llu, %llu, %llu)\n",
-          (int)rc, base, DH, H, T, B, (unsigned long long)strides[0],
-          (unsigned long long)strides[1], (unsigned long long)strides[2]);
+          "byte strides (%llu, %llu, %llu), box columns %d\n",
+          (int)rc, base, Dh, H, T, B, (unsigned long long)strides[0],
+          (unsigned long long)strides[1], (unsigned long long)strides[2],
+          Width<DH>::kPanelCols);
   return kErrEncode;
 }
 
@@ -187,6 +264,8 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H,
 // two-warpgroup block holds the SM alone (PERF.md, PR 6).
 // Narrower heads keep the same shape: the accumulators shrink with DH and
 // the grids of the Gaussian sites (a few hundred blocks) fit in one wave.
+// At DH 128 a block's ring fills half an SM's shared memory and the
+// accumulators double, so each kernel runs one block per SM (Width::k*Blocks).
 
 // ---------------------------------------------------------------- device side
 
@@ -236,16 +315,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One 64-row box of head h, rows t0.., batch b into `dst` (1024-byte
-// aligned); completion counts bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int h, int t0, int b) {
+// One box: columns c0.. of head h, rows t0.., batch b into `dst`
+// (1024-byte aligned); completion counts bytes on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int c0, int h, int t0, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(h),
       "r"(t0), "r"(b)
       : "memory");
+}
+
+// One 64-row tile of head h, rows t0.., batch b: a box per panel, panel p
+// (columns 64p..) at dst + p · kPanelBytes; Width<DH>::kTileBytes in all.
+template <int DH>
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int t0, int b) {
+#pragma unroll
+  for (int p = 0; p < Width<DH>::kPanels; ++p)
+    tma_box(static_cast<uint8_t*>(dst) + p * Width<DH>::kPanelBytes, map, bar,
+            p * Width<DH>::kPanelCols, h, t0, b);
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -271,20 +361,25 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint64_t lbo, uint6
 }
 
 // K-major descriptor of k16 step kk of a 64-row tile (the reduced dimension
-// is the tile's contiguous head width); `zero` is the DH-8 upper half.
+// is the tile's head width, contiguous within a panel); `zero` is the DH-8
+// upper half.
 template <int DH>
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk, const void* zero) {
-  const uint32_t a = smem_addr(tile) + 32u * kk;
+  using W = Width<DH>;
+  const uint32_t a = smem_addr(tile) + (uint32_t)(kk / W::kPanelSteps) * W::kPanelBytes +
+                     32u * (kk % W::kPanelSteps);
   const uint64_t lbo = DH == 8 ? (uint64_t)((smem_addr(zero) - smem_addr(tile)) >> 4) : 1;
-  return make_desc(a, lbo, DH, Width<DH>::kLayout);
+  return make_desc(a, lbo, W::kPanelCols, W::kLayout);
 }
 
 // MN-major descriptor of k16 step kk (rows 16kk..16kk+15 of the tile read
-// transposed, wgmma's transpose flag).
+// transposed, wgmma's transpose flag); N spans the tile's panels, LBO apart.
 template <int DH>
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
-  const uint32_t a = smem_addr(tile) + 32u * DH * kk;
-  return make_desc(a, DH == 8 ? DH : 1, DH, Width<DH>::kLayout);
+  using W = Width<DH>;
+  const uint32_t a = smem_addr(tile) + 32u * W::kPanelCols * kk;
+  const uint64_t lbo = DH == 8 ? 8 : W::kPanels > 1 ? W::kPanelBytes / 16 : 1;
+  return make_desc(a, lbo, W::kPanelCols, W::kLayout);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -317,6 +412,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),        \
       "+f"(d[30]), "+f"(d[31])
 
+#define HA_ACC64(d)                                                           \
+  HA_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),            \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
 #define HA_REGS4 "{%0, %1, %2, %3}"
 #define HA_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define HA_REGS16 \
@@ -325,6 +429,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define HA_REGS64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
 
 // D (64 x 64, fp32) (+)= A (64 x 16) · B (16 x 64), both from shared memory.
 // TA / TB: 0 = K-major, 1 = MN-major.  accumulate = 0 overwrites D.
@@ -359,8 +469,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     HA_WGMMA_RS(16, HA_REGS8, HA_ACC8, 8, 9, 10, 11, 12, 13, 14);
   else if constexpr (N == 32)
     HA_WGMMA_RS(32, HA_REGS16, HA_ACC16, 16, 17, 18, 19, 20, 21, 22);
-  else
+  else if constexpr (N == 64)
     HA_WGMMA_RS(64, HA_REGS32, HA_ACC32, 32, 33, 34, 35, 36, 37, 38);
+  else
+    HA_WGMMA_RS(128, HA_REGS64, HA_ACC64, 64, 65, 66, 67, 68, 69, 70);
 }
 
 // D (64 x 64) = A · Bᵀ over the head width (DH / 16 k16 steps; at DH 8 one
@@ -411,11 +523,11 @@ __device__ __forceinline__ int first_valid_key(const float* mask_b, int Tk, int 
 
 struct FwdParams {
   const float* mask;  // (B, Tk), > 0 = valid key
-  bf16* o;            // (B, Tq, H, DH), strides o_sb, o_st
+  bf16* o;            // (B, Tq, H, Dh), strides o_sb, o_st
   float* lse;         // (B, H, Tq) natural-log row log-sum-exp, or null
   long long o_sb, o_st;
-  int Tq, Tk, H, causal;
-  float scale_log2;   // DH^-0.5 · log2(e)
+  int Tq, Tk, H, Dh, causal;  // Dh: the true head width, at most DH
+  float scale_log2;   // Dh^-0.5 · log2(e)
 };
 
 // The forward keeps three K/V stages: the tile whose P·V is in flight, the
@@ -424,7 +536,8 @@ struct FwdParams {
 // Gaussian and D3PM sites (scripts/kernel_variants.py, PERF.md), a fourth
 // stage gains nothing (a block walks at most 7 key tiles, and its chain of
 // S, softmax and P·V, not the loads, sets its time), two stages are slower,
-// and a bound of four blocks per SM is slower at DH 32 and 64.
+// and a bound of four blocks per SM is slower at DH 32 and 64.  At DH 128
+// the three stages take 114 KB, one block per SM.
 constexpr int kFwdStages = 3;
 
 template <int DH>
@@ -438,14 +551,16 @@ constexpr int fwd_smem_bytes() {
 // loads the block's Q tile once and streams K/V tiles with
 // their key flags through the ring; each consumer computes S = Q·Kᵀ (SS),
 // the online softmax in registers (exp2 of scores pre-scaled by
-// DH^-0.5·log2 e), and O += P·V (RS, P in bf16 from registers, V read
+// Dh^-0.5·log2 e), and O += P·V (RS, P in bf16 from registers, V read
 // transposed; m64nDHk16, DH / 2 accumulators a thread).  S of tile kt and
 // P·V of tile kt-1 are issued together, and the softmax of tile kt runs
 // while P·V is in flight (FlashAttention-3's intra-warpgroup overlap); O is
 // rescaled before the next P·V is issued.  At least three blocks per SM
-// (at most 136 registers a thread at DH 64, fewer below).
+// (at most 136 registers a thread at DH 64, fewer below); one at DH 128.
+// Columns past p.Dh (when DH > p.Dh) are zeros in every tile, and O's are
+// not stored.
 template <bool kLse, int DH>
-__global__ void __launch_bounds__(160, 3)
+__global__ void __launch_bounds__(160, Width<DH>::kFwdBlocks)
 fwd_kernel(const __grid_constant__ CUtensorMap map_q,
            const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
@@ -494,7 +609,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       prefetch_map(&map_k);
       prefetch_map(&map_v);
       mbar_arrive_tx(qbar, kTile);
-      tma_load(qs, &map_q, qbar, h, q0, b);
+      tma_load<DH>(qs, &map_q, qbar, h, q0, b);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int s = kt % S;
@@ -513,8 +628,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) {
         plain[s] = valid ? 1.f : 0.f;
         mbar_arrive_tx(&full[s], 2 * kTile);
-        tma_load(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
-        tma_load(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
+        tma_load<DH>(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
+        tma_load<DH>(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -663,10 +778,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
-  bf16* ob = p.o + (long long)b * p.o_sb + h * DH;
+  bf16* ob = p.o + (long long)b * p.o_sb + h * p.Dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
+    if (8 * c >= p.Dh) break;  // zero columns past the head width
     if (r0 < p.Tq)
       *reinterpret_cast<uint32_t*>(ob + (long long)r0 * p.o_st + col) =
           pack_bf16(o[4 * c] * i0, o[4 * c + 1] * i0);
@@ -689,22 +805,22 @@ inline int set_smem(Kernel kernel, int bytes) {
                                    bytes);
 }
 
-// The forward on the Hopper path: q (B, Tq, H, DH), k, v (B, Tk, H, DH)
-// bf16 with element strides; o written with its strides; lse (B, H, Tq)
-// when kLse.  Returns 0 when launched, else an error code.
+// The forward on the Hopper path: q (B, Tq, H, Dh), k, v (B, Tk, H, Dh)
+// bf16 with element strides, Dh <= DH; o written with its strides; lse
+// (B, H, Tq) when kLse.  Returns 0 when launched, else an error code.
 template <bool kLse, int DH>
 inline int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                       void* o, float* lse, long long q_sb, long long q_st,
                       long long k_sb, long long k_st, long long v_sb, long long v_st,
-                      long long o_sb, long long o_st, int B, int Tq, int Tk, int H,
+                      long long o_sb, long long o_st, int B, int Tq, int Tk, int H, int Dh,
                       int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = make_map<DH>(&mq, q, B, Tq, H, q_sb, q_st);
-  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, k_sb, k_st);
-  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, v_sb, v_st);
+  int rc = make_map<DH>(&mq, q, B, Tq, H, Dh, q_sb, q_st);
+  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, Dh, k_sb, k_st);
+  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, Dh, v_sb, v_st);
   if (rc != 0) return rc;
-  FwdParams p{mask, static_cast<bf16*>(o), lse, o_sb, o_st, Tq, Tk, H, causal,
-              kLog2e / sqrtf((float)DH)};
+  FwdParams p{mask, static_cast<bf16*>(o), lse, o_sb, o_st, Tq, Tk, H, Dh, causal,
+              kLog2e / sqrtf((float)Dh)};
   constexpr int smem = fwd_smem_bytes<DH>();
   static const int attr = set_smem(fwd_kernel<kLse, DH>, smem);
   if (attr != 0) return attr;
@@ -713,7 +829,8 @@ inline int launch_fwd(const void* q, const void* k, const void* v, const float* 
   return (int)cudaGetLastError();
 }
 
-// launch_fwd at the head width Dh (8, 16, 32 or 64; the caller checked).
+// launch_fwd at the instantiation of head width Dh (a tc_width; the caller
+// checked).
 template <bool kLse>
 inline int launch_fwd_at(int Dh, const void* q, const void* k, const void* v,
                          const float* mask, void* o, float* lse, long long q_sb,
@@ -722,12 +839,13 @@ inline int launch_fwd_at(int Dh, const void* q, const void* k, const void* v,
                          int Tk, int H, int causal, cudaStream_t stream) {
 #define HA_FWD(DH)                                                                     \
   launch_fwd<kLse, DH>(q, k, v, mask, o, lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, \
-                       o_st, B, Tq, Tk, H, causal, stream)
-  switch (Dh) {
+                       o_st, B, Tq, Tk, H, Dh, causal, stream)
+  switch (instantiated_width(Dh)) {
     case 8: return HA_FWD(8);
     case 16: return HA_FWD(16);
     case 32: return HA_FWD(32);
-    default: return HA_FWD(64);
+    case 64: return HA_FWD(64);
+    default: return HA_FWD(128);
   }
 #undef HA_FWD
 }

@@ -22,20 +22,21 @@
 // of device memory (online softmax in registers over 64-key tiles), and
 // needs no second pass or workspace: each attention is one launch.
 //
-// The bf16 path at head widths 8, 16, 32 and 64 with 16-byte aligned views
-// (every call of the serving paths, the Gaussian family's included) is the
-// forward mainloop of csrc/hopper_attention.cuh, one instantiation per
-// width, shared with the training kernel's forward (here without the
-// log-sum-exp and causality).  Against what held the mma.sync version back:
+// The bf16 path at every multiple of 8 up to 128 (hopper::tc_width) with 16-byte aligned views (every call of the serving paths, the
+// Gaussian family's and the Dh-128 models' included) is the forward
+// mainloop of csrc/hopper_attention.cuh, instantiated at 8, 16, 32, 64 and
+// 128 (a width between them runs at the next one up, the tiles' columns
+// past Dh zero-filled by TMA), shared with the training kernel's forward
+// (here without the log-sum-exp and causality).  Against what held the mma.sync version back:
 //  1. loads: a producer warp keeps a 3-stage ring of K/V tiles filled by
 //     TMA (full/empty mbarriers), so loads run under the products; Q is
 //     loaded once per block;
 //  2. transposed V: V lands in shared memory with the swizzle of its row
 //     width and wgmma reads it transposed through an MN-major descriptor --
 //     no scalar 16-bit loads or packing by hand;
-//  3. products: S = Q·Kᵀ (both from shared memory, m64n64k16 over Dh / 16
+//  3. products: S = Q·Kᵀ (both from shared memory, m64n64k16 over DH / 16
 //     k-steps; Dh 8 pads its one step with a zeroed block) and O += P·V (P
-//     in bf16 straight from the score accumulators, m64nDhk16) are
+//     in bf16 straight from the score accumulators, m64nDHk16) are
 //     warpgroup wgmma; S of tile k goes out with P·V of tile k-1, and the
 //     softmax of tile k runs under that P·V;
 //  4. exponents: one multiply by Dh^-0.5·log2 e and exp2f per score;
@@ -44,12 +45,16 @@
 // One consumer warpgroup of 64 query rows per block (hopper_attention.cuh):
 // DiT serving at B = 4 gives only 192 blocks, and two warpgroups per block
 // measured slower at every serving shape, the NAR's included.
-// Everything else (fp32, other head widths, unaligned views): one thread
-// per query row on the CUDA cores in fp32, q and the output accumulators in
-// registers, K/V tiles read from shared memory as broadcasts, each held at
-// the head width rounded up to 8, 16, 32 or 64 (DW).  fp32 inputs take this
-// path so that they are summed in fp32 throughout.  hopper::tensor_core_route
-// is the rule between the two; the launcher reports the route it took.
+// fp32, unaligned views and the other widths (not a multiple of 8, or 136
+// to 256): one thread per query row (two at DW 128, four at DW 256, each
+// holding 64 columns) on the CUDA cores in fp32, q and the output
+// accumulators in registers, K/V tiles read from shared memory as
+// broadcasts, each held at the head width rounded up to 8, 16, 32, 64, 128
+// or 256 (DW, hopper::simt_width), loaded element by element so that any
+// width is read in place.  fp32 inputs take this path so that they are
+// summed in fp32 throughout.  Wider heads are refused.
+// hopper::tensor_core_route is the rule between the two; the launcher
+// reports the route it took.
 // Still left: warp-specialised ping-pong between two consumer warpgroups
 // and a persistent schedule over the (tile, head, batch) grid.
 //
@@ -70,7 +75,6 @@ namespace {
 constexpr int kQTile = 64;   // query rows per block, one per thread
 constexpr int kKTile = 64;   // keys staged in shared memory per step
 constexpr int kSub = 16;     // keys scored per online-softmax update
-constexpr int kDhMax = 64;   // widest head
 constexpr float kNegInf = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -88,34 +92,42 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// DW: the head width Dh rounded up to 8, 16, 32 or 64 (columns past Dh are 0).
+using hopper::row_sum;
+using hopper::Simt;
+
+// DW: the head width Dh rounded up to 8, 16, 32, 64, 128 or 256
+// (hopper::Simt; at DW 128 and 256 two and four threads per query row and a
+// key tile of 32 and 16 rows).
 template <typename T, int DW>
-__global__ void __launch_bounds__(kQTile)
+__global__ void __launch_bounds__(kQTile * Simt<DW>::kSplit)
 masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const float* __restrict__ kv_mask, T* __restrict__ o,
                         int q_sb, int q_st, int k_sb, int k_st, int v_sb,
                         int v_st, int o_sb, int o_st, int Tq, int Tk, int Dh,
                         float scale) {
-  __shared__ __align__(16) float ks[kKTile][DW];
-  __shared__ __align__(16) float vs[kKTile][DW];
-  __shared__ float bias[kKTile];
+  constexpr int S = Simt<DW>::kSplit, C = Simt<DW>::kCols, KT = kKTile / S;
+  __shared__ __align__(16) float ks[KT][DW];
+  __shared__ __align__(16) float vs[KT][DW];
+  __shared__ float bias[KT];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * kQTile + threadIdx.x;
+  const int tid = threadIdx.x, c0 = (tid % S) * C;
+  const int row = blockIdx.x * kQTile + tid / S;
   const bool live = row < Tq;
 
-  // q row in registers, zero-padded past Dh and pre-scaled.
-  float qr[DW];
-  const T* qp = q + (long long)b * q_sb + (long long)row * q_st + h * Dh;
+  // this thread's columns of the q row in registers, zero-padded past Dh
+  // and pre-scaled.
+  float qr[C];
+  const T* qp = q + (long long)b * q_sb + (long long)row * q_st + h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d)
-    qr[d] = (live && d < Dh) ? to_float(qp[d]) * scale : 0.f;
+  for (int d = 0; d < C; ++d)
+    qr[d] = (live && c0 + d < Dh) ? to_float(qp[d]) * scale : 0.f;
 
-  float acc[DW];
+  float acc[C];
 #pragma unroll
-  for (int d = 0; d < DW; ++d) acc[d] = 0.f;
+  for (int d = 0; d < C; ++d) acc[d] = 0.f;
   float m = -INFINITY;  // running max (true -inf only before the first key)
   float l = 0.f;        // running sum of exp
 
@@ -123,38 +135,37 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (long long)b * v_sb + h * Dh;
   const float* mb = kv_mask + (long long)b * Tk;
 
-  for (int j0 = 0; j0 < Tk; j0 += kKTile) {
+  for (int j0 = 0; j0 < Tk; j0 += KT) {
     __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kQTile) {
+    for (int idx = tid; idx < KT * DW; idx += kQTile * S) {
       const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * v_st + d]) : 0.f;
     }
-    if (threadIdx.x < kKTile) {
-      const int j = j0 + threadIdx.x;
+    if (tid < KT) {
+      const int j = j0 + tid;
       // keys past Tk take no part at all (true -inf -> p = 0); masked keys
       // inside Tk get the finite NEG_INF bias, as in the TPU kernel.
-      bias[threadIdx.x] =
-          j < Tk ? (mb[j] > 0.f ? 0.f : kNegInf) : -INFINITY;
+      bias[tid] = j < Tk ? (mb[j] > 0.f ? 0.f : kNegInf) : -INFINITY;
     }
     __syncthreads();
 
 #pragma unroll
-    for (int s0 = 0; s0 < kKTile; s0 += kSub) {
+    for (int s0 = 0; s0 < KT; s0 += kSub) {
       float s[kSub];
       float smax = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj]);
+        const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj] + c0);
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < DW / 4; ++d4) {
+        for (int d4 = 0; d4 < C / 4; ++d4) {
           const float4 kv4 = kr[d4];
           dot += qr[4 * d4] * kv4.x + qr[4 * d4 + 1] * kv4.y +
                  qr[4 * d4 + 2] * kv4.z + qr[4 * d4 + 3] * kv4.w;
         }
-        s[jj] = dot + bias[s0 + jj];
+        s[jj] = row_sum<S>(dot) + bias[s0 + jj];
         smax = fmaxf(smax, s[jj]);
       }
       if (smax == -INFINITY) continue;  // sub-tile wholly past Tk
@@ -162,15 +173,15 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m - m_new);  // 0 on the first sub-tile
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DW; ++d) acc[d] *= corr;
+      for (int d = 0; d < C; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const float p = expf(s[jj] - m_new);
         l += p;
         const float pr = round_like(p, q);
-        const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj]);
+        const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj] + c0);
 #pragma unroll
-        for (int d4 = 0; d4 < DW / 4; ++d4) {
+        for (int d4 = 0; d4 < C / 4; ++d4) {
           const float4 vv = vr[d4];
           acc[4 * d4] += pr * vv.x;
           acc[4 * d4 + 1] += pr * vv.y;
@@ -184,21 +195,18 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / l;
-  T* op = o + (long long)b * o_sb + (long long)row * o_st + h * Dh;
+  T* op = o + (long long)b * o_sb + (long long)row * o_st + h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d)
-    if (d < Dh) store(op + d, acc[d] * inv);
+  for (int d = 0; d < C; ++d)
+    if (c0 + d < Dh) store(op + d, acc[d] * inv);
 }
-
-// the SIMT kernels' register width for head width Dh
-inline int simt_width(int Dh) { return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 64; }
 
 template <typename T, int DW>
 int launch_at(const void* q, const void* k, const void* v, const float* mask, void* o,
               int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st, int o_sb, int o_st,
               int B, int Tq, int Tk, int H, int Dh, cudaStream_t stream) {
   const dim3 grid((Tq + kQTile - 1) / kQTile, H, B);
-  masked_attention_kernel<T, DW><<<grid, kQTile, 0, stream>>>(
+  masked_attention_kernel<T, DW><<<grid, kQTile * Simt<DW>::kSplit, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), q_sb, q_st, k_sb,
       k_st, v_sb, v_st, o_sb, o_st, Tq, Tk, Dh, rsqrtf((float)Dh));
@@ -213,18 +221,20 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 #define MA_SIMT(DW) \
   launch_at<T, DW>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, \
                    Tk, H, Dh, stream)
-  switch (simt_width(Dh)) {
+  switch (hopper::simt_width(Dh)) {
     case 8: return MA_SIMT(8);
     case 16: return MA_SIMT(16);
     case 32: return MA_SIMT(32);
-    default: return MA_SIMT(64);
+    case 64: return MA_SIMT(64);
+    case 128: return MA_SIMT(128);
+    default: return MA_SIMT(256);
   }
 #undef MA_SIMT
 }
 
 bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
-  return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 && Dh >= 1 &&
-         Dh <= kDhMax && Dh % 8 == 0 && (dtype == 0 || dtype == 1);
+  return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 &&
+         hopper::kernel_width(Dh) && (dtype == 0 || dtype == 1);
 }
 
 // The launcher's route: 1 = tensor cores (hopper::launch_fwd), 0 = SIMT.

@@ -35,12 +35,13 @@
 // probabilities never reach device memory (the only scratch is L and D, 8
 // bytes per query row).
 //
-// The bf16 path at head widths 8, 16, 32 and 64 with 16-byte aligned views
-// (every call of the training paths, the Gaussian family's included) is
-// built from csrc/hopper_attention.cuh, one instantiation per width; against
-// what held the mma.sync version back:
+// The bf16 path at every multiple of 8 up to 128 (hopper::tc_width) with 16-byte aligned views (every call of the training paths, the
+// Gaussian family's and the Dh-128 models' included) is built from
+// csrc/hopper_attention.cuh, instantiated at 8, 16, 32, 64 and 128 (a width
+// between them runs at the next one up, the columns past Dh zero-filled by
+// TMA and never stored); against what held the mma.sync version back:
 //  1. loads: each block has a producer warp that keeps a ring of 64-row
-//     tiles filled by TMA (3 stages in the forward, 2 in the backward),
+//     tiles filled by TMA (3 stages in the forward and the backward),
 //     full/empty mbarriers in between, so the next tile's load runs under
 //     the current tile's products;
 //  2. transposed operands: the tiles land in shared memory with the
@@ -48,12 +49,13 @@
 //     through MN-major descriptors -- no scalar 16-bit loads, no packing by
 //     hand;
 //  3. products: every product is a warpgroup wgmma (S, dP, Sᵀ, dPᵀ
-//     m64n64k16 from shared memory over Dh / 16 k-steps, Dh 8 padded with a
-//     zeroed block; P·V, Pᵀ·dO, dSᵀ·Q, dS·K m64nDhk16 with P or dS in
+//     m64n64k16 from shared memory over DH / 16 k-steps, Dh 8 padded with a
+//     zeroed block; P·V, Pᵀ·dO, dSᵀ·Q, dS·K m64nDHk16 with P or dS in
 //     registers, straight from the score accumulators); the forward issues
 //     S of tile k with P·V of tile k-1 and runs the softmax of tile k under
 //     that P·V (one consumer warpgroup per block, three or four blocks per
-//     SM, so the products of one block also run under another's softmax);
+//     SM, so the products of one block also run under another's softmax;
+//     one at DH 128, whose ring fills half the SM's shared memory);
 //  4. exponents: scores are pre-scaled by Dh^-0.5·log2 e in one multiply and
 //     exponentiated with exp2f; the backward's per-element work is one
 //     exp2f and a select, with no branch: the producer turns L into
@@ -65,10 +67,13 @@
 //     the block's keys, and only tiles crossing the diagonal mask element
 //     by element.  Rows with no visible valid key (below the first valid
 //     key) average all Tk values, so their tiles are kept;
-//  6. D pass: 8 threads per row with 16-byte loads, 4 rows per warp.
-// Other inputs (fp32, other head widths, unaligned views) take SIMT kernels:
-// one thread per query row (forward, dQ) or per key (dK/dV) on the CUDA
-// cores in fp32, rows held at Dh rounded up to 8, 16, 32 or 64.
+//  6. D pass: DH / 8 threads per row with 16-byte loads.
+// fp32, unaligned views and the other widths (not a multiple of 8, or 136
+// to 256) take SIMT kernels: one thread per query row (forward, dQ) or per
+// key (dK/dV) on the CUDA cores in fp32 (two at DW 128, four at DW 256,
+// each holding 64 columns), rows held at Dh rounded up to 8, 16, 32, 64,
+// 128 or 256 (hopper::simt_width) and loaded element by element.  Wider
+// heads are refused.
 // hopper::tensor_core_route is the rule between the two; each launcher
 // reports the route it took.
 // Still left: warp-specialised ping-pong between two consumer warpgroups
@@ -89,7 +94,6 @@
 
 namespace {
 
-constexpr int kDhMax = 64;    // widest head
 constexpr int kRows = 64;     // query rows (forward, dQ) or keys (dK/dV) per block
 constexpr int kKTile = 64;    // keys staged in shared memory per step
 constexpr int kSub = 16;      // keys scored per online-softmax update
@@ -120,64 +124,69 @@ __device__ __forceinline__ float key_flag(const float* mb, int j, int Tk) {
 }
 
 // ---------------------------------------------------------------------------
-// The SIMT kernels hold a row at DW, the head width Dh rounded up to 8, 16,
-// 32 or 64 (columns past Dh are 0).
-//
-// Forward, CUDA cores: one thread per query row.
+// The SIMT kernels (hopper::Simt: a row at DW, two threads at DW 128, four
+// at 256).
+using hopper::row_sum;
+using hopper::Simt;
+
+// Forward, CUDA cores: one thread (hopper::Simt's kSplit) per query row.
 
 template <typename T, int DW>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kRows * Simt<DW>::kSplit)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ kv_mask,
            T* __restrict__ o, float* __restrict__ lse, Strides st, int Tq,
            int Tk, int H, int Dh, int causal, float scale) {
-  __shared__ __align__(16) float ks[kKTile][DW];
-  __shared__ __align__(16) float vs[kKTile][DW];
-  __shared__ float flag[kKTile];
+  constexpr int S = Simt<DW>::kSplit, C = Simt<DW>::kCols, KT = kKTile / S;
+  __shared__ __align__(16) float ks[KT][DW];
+  __shared__ __align__(16) float vs[KT][DW];
+  __shared__ float flag[KT];
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x;
+  const int tid = threadIdx.x, c0 = (tid % S) * C;
+  const int row = blockIdx.x * kRows + tid / S;
   const bool live = row < Tq;
 
-  float qr[DW];
-  const T* qp = q + (long long)b * st.q_sb + (long long)row * st.q_st + h * Dh;
+  float qr[C];
+  const T* qp = q + (long long)b * st.q_sb + (long long)row * st.q_st + h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d)
-    qr[d] = (live && d < Dh) ? to_float(qp[d]) * scale : 0.f;
-  float acc[DW];
+  for (int d = 0; d < C; ++d)
+    qr[d] = (live && c0 + d < Dh) ? to_float(qp[d]) * scale : 0.f;
+  float acc[C];
 #pragma unroll
-  for (int d = 0; d < DW; ++d) acc[d] = 0.f;
+  for (int d = 0; d < C; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   const T* kb = k + (long long)b * st.k_sb + h * Dh;
   const T* vb = v + (long long)b * st.v_sb + h * Dh;
   const float* mb = kv_mask + (long long)b * Tk;
 
-  for (int j0 = 0; j0 < Tk; j0 += kKTile) {
+  for (int j0 = 0; j0 < Tk; j0 += KT) {
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kRows) {
+    for (int idx = tid; idx < KT * DW; idx += kRows * S) {
       const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * st.k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * st.v_st + d]) : 0.f;
     }
-    flag[threadIdx.x] = key_flag(mb, j0 + threadIdx.x, Tk);
+    if (tid < KT) flag[tid] = key_flag(mb, j0 + tid, Tk);
     __syncthreads();
 
 #pragma unroll
-    for (int s0 = 0; s0 < kKTile; s0 += kSub) {
+    for (int s0 = 0; s0 < KT; s0 += kSub) {
       float s[kSub];
       float smax = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj]);
+        const float4* kr = reinterpret_cast<const float4*>(ks[s0 + jj] + c0);
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < DW / 4; ++d4) {
+        for (int d4 = 0; d4 < C / 4; ++d4) {
           const float4 k4 = kr[d4];
           dot += qr[4 * d4] * k4.x + qr[4 * d4 + 1] * k4.y +
                  qr[4 * d4 + 2] * k4.z + qr[4 * d4 + 3] * k4.w;
         }
+        dot = row_sum<S>(dot);
         const float f = flag[s0 + jj];
         const bool vis = f > 0.f && (!causal || j0 + s0 + jj <= row);
         s[jj] = vis ? dot : (f < 0.f ? -INFINITY : kNegInf);
@@ -188,15 +197,15 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m - m_new);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DW; ++d) acc[d] *= corr;
+      for (int d = 0; d < C; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const float p = expf(s[jj] - m_new);
         l += p;
         const float pr = round_like(p, q);
-        const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj]);
+        const float4* vr = reinterpret_cast<const float4*>(vs[s0 + jj] + c0);
 #pragma unroll
-        for (int d4 = 0; d4 < DW / 4; ++d4) {
+        for (int d4 = 0; d4 < C / 4; ++d4) {
           const float4 v4 = vr[d4];
           acc[4 * d4] += pr * v4.x;
           acc[4 * d4 + 1] += pr * v4.y;
@@ -210,11 +219,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / l;
-  T* op = o + (long long)b * st.o_sb + (long long)row * st.o_st + h * Dh;
+  T* op = o + (long long)b * st.o_sb + (long long)row * st.o_st + h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d)
-    if (d < Dh) store(op + d, acc[d] * inv);
-  lse[((long long)b * H + h) * Tq + row] = m + logf(l);
+  for (int d = 0; d < C; ++d)
+    if (c0 + d < Dh) store(op + d, acc[d] * inv);
+  if (c0 == 0) lse[((long long)b * H + h) * Tq + row] = m + logf(l);
 }
 
 // ---------------------------------------------------------------------------
@@ -242,7 +251,8 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
   delta[((long long)b * H + h) * Tq + i] = acc;
 }
 
-// dK, dV: one thread per key; q / dO rows staged kQTileB at a time.
+// dK, dV: one thread (kSplit) per key; q / dO rows staged kQTileB /
+// kSplit at a time.
 template <typename T, int DW>
 __global__ void __launch_bounds__(kRows)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -251,61 +261,65 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, Strides st, int do_sb, int do_st, int Tq,
                 int Tk, int H, int Dh, int causal, float scale) {
-  __shared__ float ksm[kRows][DW + 1];
-  __shared__ float vsm[kRows][DW + 1];
-  __shared__ __align__(16) float qs[kQTileB][DW];
-  __shared__ __align__(16) float dos[kQTileB][DW];
-  __shared__ float ls[kQTileB], ds_[kQTileB];
+  constexpr int S = Simt<DW>::kSplit, C = Simt<DW>::kCols;
+  constexpr int NK = kRows / S, QB = kQTileB / S;  // keys per block, rows per stage
+  __shared__ float ksm[NK][DW + 1];
+  __shared__ float vsm[NK][DW + 1];
+  __shared__ __align__(16) float qs[QB][DW];
+  __shared__ __align__(16) float dos[QB][DW];
+  __shared__ float ls[QB], ds_[QB];
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int j = blockIdx.x * kRows + tid;
+  const int tid = threadIdx.x, kr = tid / S, c0 = (tid % S) * C;
+  const int j = blockIdx.x * NK + kr;
   const bool live = j < Tk;
   const float* mb = kv_mask + (long long)b * Tk;
   const bool valid = live && mb[j] > 0.f;
   const float inv_tk = 1.f / (float)Tk;
 
   // this block's K and V rows, fp32, zero-padded past Dh
-  for (int idx = tid; idx < kRows * DW; idx += kRows) {
+  for (int idx = tid; idx < NK * DW; idx += kRows) {
     const int r = idx / DW, d = idx % DW;
-    const int jr = blockIdx.x * kRows + r;
+    const int jr = blockIdx.x * NK + r;
     const bool in = jr < Tk && d < Dh;
     ksm[r][d] = in ? to_float(k[(long long)b * st.k_sb + (long long)jr * st.k_st + h * Dh + d]) : 0.f;
     vsm[r][d] = in ? to_float(v[(long long)b * st.v_sb + (long long)jr * st.v_st + h * Dh + d]) : 0.f;
   }
 
-  float dka[DW], dva[DW];
+  float dka[C], dva[C];
 #pragma unroll
-  for (int d = 0; d < DW; ++d) dka[d] = dva[d] = 0.f;
+  for (int d = 0; d < C; ++d) dka[d] = dva[d] = 0.f;
 
   const float* lb = lse + ((long long)b * H + h) * Tq;
   const float* db = delta + ((long long)b * H + h) * Tq;
-  for (int i0 = 0; i0 < Tq; i0 += kQTileB) {
+  const float* kk = ksm[kr] + c0;
+  const float* vk = vsm[kr] + c0;
+  for (int i0 = 0; i0 < Tq; i0 += QB) {
     __syncthreads();
-    for (int idx = tid; idx < kQTileB * DW; idx += kRows) {
+    for (int idx = tid; idx < QB * DW; idx += kRows) {
       const int r = idx / DW, d = idx % DW;
       const int ir = i0 + r;
       const bool in = ir < Tq && d < Dh;
       qs[r][d] = in ? to_float(q[(long long)b * st.q_sb + (long long)ir * st.q_st + h * Dh + d]) : 0.f;
       dos[r][d] = in ? to_float(dout[(long long)b * do_sb + (long long)ir * do_st + h * Dh + d]) : 0.f;
     }
-    if (tid < kQTileB) {
+    if (tid < QB) {
       const int ir = i0 + tid;
       ls[tid] = ir < Tq ? lb[ir] : 0.f;
       ds_[tid] = ir < Tq ? db[ir] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    const int n_rows = min(kQTileB, Tq - i0);
+    const int n_rows = min(QB, Tq - i0);
     for (int r = 0; r < n_rows; ++r) {
       const int i = i0 + r;
       const float Li = ls[r];
-      const float4* q4 = reinterpret_cast<const float4*>(qs[r]);
-      const float4* do4 = reinterpret_cast<const float4*>(dos[r]);
+      const float4* q4 = reinterpret_cast<const float4*>(qs[r] + c0);
+      const float4* do4 = reinterpret_cast<const float4*>(dos[r] + c0);
       if (Li == kNegInf) {  // all keys masked: uniform P, no dS
         const float pr = round_like(inv_tk, q);
 #pragma unroll
-        for (int d4 = 0; d4 < DW / 4; ++d4) {
+        for (int d4 = 0; d4 < C / 4; ++d4) {
           const float4 g4 = do4[d4];
           dva[4 * d4] += pr * g4.x;
           dva[4 * d4 + 1] += pr * g4.y;
@@ -317,18 +331,20 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!valid || (causal && j > i)) continue;  // P = 0, dS = 0
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < DW / 4; ++d4) {
+      for (int d4 = 0; d4 < C / 4; ++d4) {
         const float4 a = q4[d4], g4 = do4[d4];
-        dot += a.x * ksm[tid][4 * d4] + a.y * ksm[tid][4 * d4 + 1] +
-               a.z * ksm[tid][4 * d4 + 2] + a.w * ksm[tid][4 * d4 + 3];
-        dpv += g4.x * vsm[tid][4 * d4] + g4.y * vsm[tid][4 * d4 + 1] +
-               g4.z * vsm[tid][4 * d4 + 2] + g4.w * vsm[tid][4 * d4 + 3];
+        dot += a.x * kk[4 * d4] + a.y * kk[4 * d4 + 1] +
+               a.z * kk[4 * d4 + 2] + a.w * kk[4 * d4 + 3];
+        dpv += g4.x * vk[4 * d4] + g4.y * vk[4 * d4 + 1] +
+               g4.z * vk[4 * d4 + 2] + g4.w * vk[4 * d4 + 3];
       }
+      dot = row_sum<S>(dot);
+      dpv = row_sum<S>(dpv);
       const float p = expf(dot * scale - Li);
       const float pr = round_like(p, q);
       const float dsv = p * (dpv - ds_[r]);
 #pragma unroll
-      for (int d4 = 0; d4 < DW / 4; ++d4) {
+      for (int d4 = 0; d4 < C / 4; ++d4) {
         const float4 a = q4[d4], g4 = do4[d4];
         dva[4 * d4] += pr * g4.x;
         dva[4 * d4 + 1] += pr * g4.y;
@@ -343,79 +359,84 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!live) return;
   // dK, dV are dense (B, Tk, H, Dh)
-  const long long base = ((long long)b * Tk + j) * H * Dh + (long long)h * Dh;
+  const long long base = ((long long)b * Tk + j) * H * Dh + (long long)h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d) {
-    if (d < Dh) {
+  for (int d = 0; d < C; ++d) {
+    if (c0 + d < Dh) {
       store(dk + base + d, dka[d] * scale);
       store(dv + base + d, dva[d]);
     }
   }
 }
 
-// dQ: one thread per query row; K / V tiles staged in shared memory.
+// dQ: one thread (kSplit) per query row; K / V tiles staged in
+// shared memory.
 template <typename T, int DW>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kRows * Simt<DW>::kSplit)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ kv_mask,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, Strides st,
               int do_sb, int do_st, int Tq, int Tk, int H, int Dh, int causal,
               float scale) {
-  __shared__ __align__(16) float ks[kKTile][DW];
-  __shared__ __align__(16) float vs[kKTile][DW];
-  __shared__ float flag[kKTile];
+  constexpr int S = Simt<DW>::kSplit, C = Simt<DW>::kCols, KT = kKTile / S;
+  __shared__ __align__(16) float ks[KT][DW];
+  __shared__ __align__(16) float vs[KT][DW];
+  __shared__ float flag[KT];
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int i = blockIdx.x * kRows + threadIdx.x;
+  const int tid = threadIdx.x, c0 = (tid % S) * C;
+  const int i = blockIdx.x * kRows + tid / S;
   const bool live = i < Tq;
   const float Li = live ? lse[((long long)b * H + h) * Tq + i] : 0.f;
   const float Di = live ? delta[((long long)b * H + h) * Tq + i] : 0.f;
   // an all-masked row has dS = 0 everywhere: dQ stays 0
   const bool work = live && Li != kNegInf;
 
-  float qr[DW], gr[DW], acc[DW];
-  const T* qp = q + (long long)b * st.q_sb + (long long)i * st.q_st + h * Dh;
-  const T* gp = dout + (long long)b * do_sb + (long long)i * do_st + h * Dh;
+  float qr[C], gr[C], acc[C];
+  const T* qp = q + (long long)b * st.q_sb + (long long)i * st.q_st + h * Dh + c0;
+  const T* gp = dout + (long long)b * do_sb + (long long)i * do_st + h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d) {
-    qr[d] = (work && d < Dh) ? to_float(qp[d]) : 0.f;
-    gr[d] = (work && d < Dh) ? to_float(gp[d]) : 0.f;
+  for (int d = 0; d < C; ++d) {
+    qr[d] = (work && c0 + d < Dh) ? to_float(qp[d]) : 0.f;
+    gr[d] = (work && c0 + d < Dh) ? to_float(gp[d]) : 0.f;
     acc[d] = 0.f;
   }
 
   const T* kb = k + (long long)b * st.k_sb + h * Dh;
   const T* vb = v + (long long)b * st.v_sb + h * Dh;
   const float* mb = kv_mask + (long long)b * Tk;
-  for (int j0 = 0; j0 < Tk; j0 += kKTile) {
+  for (int j0 = 0; j0 < Tk; j0 += KT) {
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kKTile * DW; idx += kRows) {
+    for (int idx = tid; idx < KT * DW; idx += kRows * S) {
       const int j = idx / DW, d = idx % DW;
       const bool in = (j0 + j < Tk) && d < Dh;
       ks[j][d] = in ? to_float(kb[(long long)(j0 + j) * st.k_st + d]) : 0.f;
       vs[j][d] = in ? to_float(vb[(long long)(j0 + j) * st.v_st + d]) : 0.f;
     }
-    flag[threadIdx.x] = key_flag(mb, j0 + threadIdx.x, Tk);
+    if (tid < KT) flag[tid] = key_flag(mb, j0 + tid, Tk);
     __syncthreads();
     if (!work) continue;
-    const int n_keys = min(kKTile, Tk - j0);
+    const int n_keys = min(KT, Tk - j0);
     for (int jj = 0; jj < n_keys; ++jj) {
       if (!(flag[jj] > 0.f) || (causal && j0 + jj > i)) continue;
-      const float4* k4 = reinterpret_cast<const float4*>(ks[jj]);
-      const float4* v4 = reinterpret_cast<const float4*>(vs[jj]);
+      const float4* k4 = reinterpret_cast<const float4*>(ks[jj] + c0);
+      const float4* v4 = reinterpret_cast<const float4*>(vs[jj] + c0);
       float dot = 0.f, dpv = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < DW / 4; ++d4) {
+      for (int d4 = 0; d4 < C / 4; ++d4) {
         const float4 a = k4[d4], c = v4[d4];
         dot += qr[4 * d4] * a.x + qr[4 * d4 + 1] * a.y +
                qr[4 * d4 + 2] * a.z + qr[4 * d4 + 3] * a.w;
         dpv += gr[4 * d4] * c.x + gr[4 * d4 + 1] * c.y +
                gr[4 * d4 + 2] * c.z + gr[4 * d4 + 3] * c.w;
       }
+      dot = row_sum<S>(dot);
+      dpv = row_sum<S>(dpv);
       const float p = expf(dot * scale - Li);
       const float dsv = p * (dpv - Di);
 #pragma unroll
-      for (int d4 = 0; d4 < DW / 4; ++d4) {
+      for (int d4 = 0; d4 < C / 4; ++d4) {
         const float4 a = k4[d4];
         acc[4 * d4] += dsv * a.x;
         acc[4 * d4 + 1] += dsv * a.y;
@@ -425,17 +446,17 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (!live) return;
-  T* out = dq + ((long long)b * Tq + i) * H * Dh + (long long)h * Dh;
+  T* out = dq + ((long long)b * Tq + i) * H * Dh + (long long)h * Dh + c0;
 #pragma unroll
-  for (int d = 0; d < DW; ++d)
-    if (d < Dh) store(out + d, acc[d] * scale);
+  for (int d = 0; d < C; ++d)
+    if (c0 + d < Dh) store(out + d, acc[d] * scale);
 }
 
 
 // ---------------------------------------------------------------------------
-// Backward on the Hopper path: bf16, DH = 8, 16, 32 or 64
-// (csrc/hopper_attention.cuh).
-// P_ij = exp2(s_ij·DH^-0.5·log2 e − L_i·log2 e) at visible entries, 0
+// Backward on the Hopper path: bf16, DH = 8, 16, 32, 64 or 128, the head
+// width Dh <= DH (csrc/hopper_attention.cuh; columns past Dh are zeros).
+// P_ij = exp2(s_ij·Dh^-0.5·log2 e − L_i·log2 e) at visible entries, 0
 // elsewhere, plus 1/Tk on a row whose L is NEG_INF (all keys masked, no dS);
 // dV_j = Σ_i round(P_ij)·dO_i;  dS_ij = P_ij·(dO_i·v_j − D_i) at visible
 // entries;  dQ_i = scale·Σ_j dS_ij·k_j;  dK_j = scale·Σ_i dS_ij·q_i.
@@ -444,13 +465,14 @@ using hopper::kStages;
 using hopper::Width;
 
 // D_i = Σ_d dO_id·O_id: DH / 8 threads per (b, i, h) row, one 16-byte load
-// of o and of dO each, the partial sums reduced by shuffles in a fixed order.
+// of o and of dO each (threads past the head width Dh add 0), the partial
+// sums reduced by shuffles in a fixed order.
 template <int DH>
 __global__ void __launch_bounds__(256)
 bwd_delta_rows_kernel(const hopper::bf16* __restrict__ o,
                       const hopper::bf16* __restrict__ dout,
                       float* __restrict__ delta, long long o_sb, long long o_st,
-                      long long do_sb, long long do_st, int B, int Tq, int H) {
+                      long long do_sb, long long do_st, int B, int Tq, int H, int Dh) {
   constexpr int P = DH / 8;  // threads per row
   const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / P;
   const int part = threadIdx.x % P;
@@ -459,10 +481,10 @@ bwd_delta_rows_kernel(const hopper::bf16* __restrict__ o,
   const int i = live ? (int)((r / H) % Tq) : 0;
   const int b = live ? (int)(r / ((long long)H * Tq)) : 0;
   float acc = 0.f;
-  if (live) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + b * o_sb + i * o_st + h * DH + part * 8);
+  if (live && part * 8 < Dh) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + b * o_sb + i * o_st + h * Dh + part * 8);
     const uint4 c =
-        *reinterpret_cast<const uint4*>(dout + b * do_sb + i * do_st + h * DH + part * 8);
+        *reinterpret_cast<const uint4*>(dout + b * do_sb + i * do_st + h * Dh + part * 8);
     const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
     const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
 #pragma unroll
@@ -480,8 +502,8 @@ struct BwdParams {
   const float* mask;   // (B, Tk)
   const float* lse;    // (B, H, Tq), natural log
   const float* delta;  // (B, H, Tq)
-  hopper::bf16 *dq, *dk, *dv;  // dense (B, T, H, DH)
-  int Tq, Tk, H, causal;
+  hopper::bf16 *dq, *dk, *dv;  // dense (B, T, H, Dh)
+  int Tq, Tk, H, Dh, causal;    // Dh: the true head width, at most DH
   float scale, scale_log2, inv_tk;
 };
 
@@ -516,9 +538,9 @@ constexpr int dkdv_smem_bytes() {
 // and dSᵀ are formed in the accumulators, which are already in A-operand
 // layout; dV += Pᵀ·dO and dK += dSᵀ·Q (RS m64nDH, dO and Q read
 // transposed).  At least two blocks per SM (at DH 64, four accumulators of
-// 32 floats a thread).
+// 32 floats a thread); one at DH 128 (dK and dV 64 floats each).
 template <int DH>
-__global__ void __launch_bounds__(160, 2)
+__global__ void __launch_bounds__(160, Width<DH>::kDkdvBlocks)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
@@ -572,8 +594,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp == 4) {  // ---- producer warp
     if (lane == 0) {
       mbar_arrive_tx(kvbar, 2 * kTile);
-      tma_load(ks, &map_k, kvbar, h, j0, b);
-      tma_load(vs, &map_v, kvbar, h, j0, b);
+      tma_load<DH>(ks, &map_k, kvbar, h, j0, b);
+      tma_load<DH>(vs, &map_v, kvbar, h, j0, b);
     }
     for (int idx = 0; idx < count; ++idx) {
       const int s = idx % kStages;
@@ -587,8 +609,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       if (lane == 0) {
         mbar_arrive_tx(&full[s], 2 * kTile);
-        tma_load(qs + s * kTile, &map_q, &full[s], h, i0, b);
-        tma_load(gs + s * kTile, &map_do, &full[s], h, i0, b);
+        tma_load<DH>(qs + s * kTile, &map_q, &full[s], h, i0, b);
+        tma_load<DH>(gs + s * kTile, &map_do, &full[s], h, i0, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -666,18 +688,19 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dK, dV are dense (B, Tk, H, DH)
+  // dK, dV are dense (B, Tk, H, Dh)
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
+    if (8 * c >= p.Dh) break;  // zero columns past the head width
     if (kr0 < p.Tk) {
-      const long long off = ((long long)b * p.Tk + kr0) * p.H * DH + (long long)h * DH + col;
+      const long long off = ((long long)b * p.Tk + kr0) * p.H * p.Dh + (long long)h * p.Dh + col;
       *reinterpret_cast<uint32_t*>(p.dk + off) =
           pack_bf16(dk[4 * c] * p.scale, dk[4 * c + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c], dv[4 * c + 1]);
     }
     if (kr1 < p.Tk) {
-      const long long off = ((long long)b * p.Tk + kr1) * p.H * DH + (long long)h * DH + col;
+      const long long off = ((long long)b * p.Tk + kr1) * p.H * p.Dh + (long long)h * p.Dh + col;
       *reinterpret_cast<uint32_t*>(p.dk + off) =
           pack_bf16(dk[4 * c + 2] * p.scale, dk[4 * c + 3] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + off) = pack_bf16(dv[4 * c + 2], dv[4 * c + 3]);
@@ -695,9 +718,9 @@ constexpr int dq_smem_bytes() {
 // (warps 0..3) and one producer warp (warp 4); Q and dO tiles resident, K/V tiles and key flags stream through the
 // ring.  S = Q·Kᵀ and dP = dO·Vᵀ (SS), dS in the accumulators, dQ += dS·K
 // (RS m64nDH, K read transposed).
-// At least three blocks per SM.
+// At least three blocks per SM; one at DH 128.
 template <int DH>
-__global__ void __launch_bounds__(160, 3)
+__global__ void __launch_bounds__(160, Width<DH>::kDqBlocks)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
@@ -743,8 +766,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp == 4) {  // ---- producer warp
     if (lane == 0) {
       mbar_arrive_tx(qbar, 2 * kTile);
-      tma_load(qs, &map_q, qbar, h, q0, b);
-      tma_load(gs, &map_do, qbar, h, q0, b);
+      tma_load<DH>(qs, &map_q, qbar, h, q0, b);
+      tma_load<DH>(gs, &map_do, qbar, h, q0, b);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int s = kt % kStages;
@@ -757,8 +780,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       if (lane == 0) {
         mbar_arrive_tx(&full[s], 2 * kTile);
-        tma_load(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
-        tma_load(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
+        tma_load<DH>(ks + s * kTile, &map_k, &full[s], h, kt * kRows, b);
+        tma_load<DH>(vs + s * kTile, &map_v, &full[s], h, kt * kRows, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -823,35 +846,33 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dQ is dense (B, Tq, H, DH)
+  // dQ is dense (B, Tq, H, Dh)
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = 8 * c + 2 * t;
+    if (8 * c >= p.Dh) break;  // zero columns past the head width
     if (r0 < p.Tq)
-      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r0) * p.H * DH +
-                                   (long long)h * DH + col) =
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r0) * p.H * p.Dh +
+                                   (long long)h * p.Dh + col) =
           pack_bf16(dq[4 * c] * p.scale, dq[4 * c + 1] * p.scale);
     if (r1 < p.Tq)
-      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r1) * p.H * DH +
-                                   (long long)h * DH + col) =
+      *reinterpret_cast<uint32_t*>(p.dq + ((long long)b * p.Tq + r1) * p.H * p.Dh +
+                                   (long long)h * p.Dh + col) =
           pack_bf16(dq[4 * c + 2] * p.scale, dq[4 * c + 3] * p.scale);
   }
 }
 
 bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 &&
-         Dh >= 8 && Dh <= kDhMax && Dh % 8 == 0 && (dtype == 0 || dtype == 1);
+         hopper::kernel_width(Dh) && (dtype == 0 || dtype == 1);
 }
-
-// the SIMT kernels' register width for head width Dh
-inline int simt_width(int Dh) { return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 64; }
 
 template <typename T, int DW>
 int launch_fwd_simt(const void* q, const void* k, const void* v, const float* mask, void* o,
                     float* lse, Strides st, int B, int Tq, int Tk, int H, int Dh, int causal,
                     cudaStream_t s) {
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  fwd_kernel<T, DW><<<grid, kRows, 0, s>>>(
+  fwd_kernel<T, DW><<<grid, kRows * Simt<DW>::kSplit, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), lse, st, Tq, Tk, H,
       Dh, causal, rsqrtf((float)Dh));
@@ -863,11 +884,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                void* o, float* lse, Strides st, int B, int Tq, int Tk, int H,
                int Dh, int causal, cudaStream_t s) {
 #define TFA_FWD(DW) launch_fwd_simt<T, DW>(q, k, v, mask, o, lse, st, B, Tq, Tk, H, Dh, causal, s)
-  switch (simt_width(Dh)) {
+  switch (hopper::simt_width(Dh)) {
     case 8: return TFA_FWD(8);
     case 16: return TFA_FWD(16);
     case 32: return TFA_FWD(32);
-    default: return TFA_FWD(64);
+    case 64: return TFA_FWD(64);
+    case 128: return TFA_FWD(128);
+    default: return TFA_FWD(256);
   }
 #undef TFA_FWD
 }
@@ -877,7 +900,8 @@ int launch_bwd_simt(const void* q, const void* k, const void* v, const float* ma
                     const float* lse, const void* dout, void* dq, void* dk, void* dv,
                     const float* delta, Strides st, int do_sb, int do_st, int Tq, int Tk,
                     int B, int H, int Dh, int causal, float scale, cudaStream_t s) {
-  const dim3 gk((Tk + kRows - 1) / kRows, H, B);
+  constexpr int NK = kRows / Simt<DW>::kSplit;  // keys per dK/dV block
+  const dim3 gk((Tk + NK - 1) / NK, H, B);
   bwd_dkdv_kernel<T, DW><<<gk, kRows, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
@@ -886,7 +910,7 @@ int launch_bwd_simt(const void* q, const void* k, const void* v, const float* ma
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const dim3 gq((Tq + kRows - 1) / kRows, H, B);
-  bwd_dq_kernel<T, DW><<<gq, kRows, 0, s>>>(
+  bwd_dq_kernel<T, DW><<<gq, kRows * Simt<DW>::kSplit, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), st, do_sb, do_st, Tq, Tk, H, Dh, causal, scale);
@@ -909,11 +933,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask,
 #define TFA_BWD(DW)                                                                       \
   launch_bwd_simt<T, DW>(q, k, v, mask, lse, dout, dq, dk, dv, delta, st, do_sb, do_st, Tq, \
                          Tk, B, H, Dh, causal, scale, s)
-  switch (simt_width(Dh)) {
+  switch (hopper::simt_width(Dh)) {
     case 8: return TFA_BWD(8);
     case 16: return TFA_BWD(16);
     case 32: return TFA_BWD(32);
-    default: return TFA_BWD(64);
+    case 64: return TFA_BWD(64);
+    case 128: return TFA_BWD(128);
+    default: return TFA_BWD(256);
   }
 #undef TFA_BWD
 }
@@ -934,26 +960,26 @@ template <int DH>
 int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* mask,
                       const void* o, const float* lse, const void* dout, void* dq,
                       void* dk, void* dv, float* delta, const Strides& st, int do_sb,
-                      int do_st, int B, int Tq, int Tk, int H, int causal,
+                      int do_st, int B, int Tq, int Tk, int H, int Dh, int causal,
                       cudaStream_t s) {
   using hopper::make_map;
   CUtensorMap mq, mk, mv, mdo;
-  int rc = make_map<DH>(&mq, q, B, Tq, H, st.q_sb, st.q_st);
-  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, st.k_sb, st.k_st);
-  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, st.v_sb, st.v_st);
-  if (rc == 0) rc = make_map<DH>(&mdo, dout, B, Tq, H, do_sb, do_st);
+  int rc = make_map<DH>(&mq, q, B, Tq, H, Dh, st.q_sb, st.q_st);
+  if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, Dh, st.k_sb, st.k_st);
+  if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, Dh, st.v_sb, st.v_st);
+  if (rc == 0) rc = make_map<DH>(&mdo, dout, B, Tq, H, Dh, do_sb, do_st);
   if (rc != 0) return rc;
   constexpr int P = DH / 8;  // delta threads per row
   const long long rows = (long long)B * Tq * H;
   bwd_delta_rows_kernel<DH><<<(unsigned)((rows * P + 255) / 256), 256, 0, s>>>(
       static_cast<const hopper::bf16*>(o), static_cast<const hopper::bf16*>(dout), delta,
-      st.o_sb, st.o_st, do_sb, do_st, B, Tq, H);
+      st.o_sb, st.o_st, do_sb, do_st, B, Tq, H, Dh);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const float scale = rsqrtf((float)DH);
+  const float scale = rsqrtf((float)Dh);
   const BwdParams p{mask, lse, delta, static_cast<hopper::bf16*>(dq),
                     static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv),
-                    Tq, Tk, H, causal, scale, scale * hopper::kLog2e, 1.f / (float)Tk};
+                    Tq, Tk, H, Dh, causal, scale, scale * hopper::kLog2e, 1.f / (float)Tk};
   constexpr int R = hopper::kRows;
   rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel<DH>>(dkdv_smem_bytes<DH>(), (Tk + R - 1) / R,
                                                     H, B, mq, mk, mv, mdo, p, s);
@@ -1029,12 +1055,13 @@ extern "C" int train_flash_attention_bwd(
   if (tc) {
 #define TFA_HOPPER(DH)                                                                     \
   launch_bwd_hopper<DH>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st, do_sb, do_st, B, Tq, \
-                        Tk, H, causal, s)
-    switch (Dh) {
+                        Tk, H, Dh, causal, s)
+    switch (hopper::instantiated_width(Dh)) {
       case 8: return TFA_HOPPER(8);
       case 16: return TFA_HOPPER(16);
       case 32: return TFA_HOPPER(32);
-      default: return TFA_HOPPER(64);
+      case 64: return TFA_HOPPER(64);
+      default: return TFA_HOPPER(128);
     }
 #undef TFA_HOPPER
   }

@@ -7,7 +7,9 @@ stride of steps (``p_sample_strided``).
 Both structured families are rank one and closed under products,
 ``Q̄_t = c_t·I + d_t·(absorb or uniform)``; ``cum_diag[t] = c_t`` and
 ``cum_off[t] = d_t`` (the probability that a token has been absorbed by
-step t), so every row and mix is O(V) vector work.  ``from_matrices`` takes
+step t), so every row and mix is O(V) vector work; the dense one-step
+matrices of both families are ``absorbing_transition_mat`` and
+``uniform_transition_mat`` (numpy, float64).  ``from_matrices`` takes
 arbitrary dense one-step matrices instead ("dense"), and the ops then index
 them.  Every sampling step takes explicit uniform noise or a generator, so
 parity with the JAX package is tested under injected noise.  The posterior
@@ -34,6 +36,22 @@ def _gumbel(uniform_noise: torch.Tensor) -> torch.Tensor:
 def _per_row(t: torch.Tensor, ndim: int) -> torch.Tensor:
     """(B,) → (B, 1, …, 1) with ``ndim`` dimensions."""
     return t.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+
+def absorbing_transition_mat(beta_t: float, num_classes: int) -> np.ndarray:
+    """Dense float64 one-step Q_t with an absorbing state at ``num_classes //
+    2``: (1 − β_t)·I plus β_t in the absorbing column."""
+    mat = np.diag(np.full(num_classes, 1.0 - beta_t, dtype=np.float64))
+    mat[:, num_classes // 2] += beta_t
+    return mat
+
+
+def uniform_transition_mat(beta_t: float, num_classes: int) -> np.ndarray:
+    """Dense float64 one-step uniform-corruption Q_t: β_t / V off the
+    diagonal, 1 − β_t·(V − 1) / V on it."""
+    mat = np.full((num_classes, num_classes), beta_t / num_classes, dtype=np.float64)
+    np.fill_diagonal(mat, 1.0 - beta_t * (num_classes - 1) / num_classes)
+    return mat
 
 
 @dataclasses.dataclass(frozen=True)

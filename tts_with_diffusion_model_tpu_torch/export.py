@@ -107,4 +107,9 @@ def main(argv: list[str] | None = None):
 
 
 if __name__ == "__main__":
-    main()
+    from .utils.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -13,11 +13,11 @@ the whole prompt's codes flattened through an MLP and a 10-layer encoder,
 the text ids through an MLP and a 4-layer encoder, lifted to the
 1280-wide cross stream.
 
-``Attention`` has no mask, and its head widths at the published widths
-(40, 80, 160) exceed the kernels' ``MAX_DH`` of 64.  The JAX package
-computes it with einsums in XLA, outside any Pallas kernel, so it stays a
-plain PyTorch product here, as the AR's cached decode attention does:
-nothing in this module launches a kernel.
+``Attention`` has no mask (head widths 40, 80 and 160 at the published
+widths).  The JAX package computes it with einsums in XLA, outside any
+Pallas kernel, so it is no Pallas site to port and stays a plain PyTorch
+product here, as the AR's cached decode attention does: nothing in this
+module launches a kernel.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ only on padding *query* rows, which every caller multiplies away (DiT blocks,
 condition towers, the NAR's ``to_out(o) * mask``).
 
 For a tensor on the CPU the wrapper runs the plain version; for a CUDA tensor
-it launches the kernel or raises.  The launcher reports the route it took
-(tensor cores or SIMT, ``route.tensor_core_route``'s rule), which the
-wrapper counts in ``launches_tc``.
+it launches the kernel or raises, at any head width up to ``MAX_DH``
+(``kernel_width``).  The launcher reports the route it took (tensor cores or
+SIMT, ``route.tensor_core_route``'s rule), which the wrapper counts in
+``launches_tc``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from .attention import NEG_INF
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 64
+#: the widest head the kernels take (``hopper::kDhMax``)
+MAX_DH = 256
 _INT_MAX = 2**31 - 1
 
 _fn = None
@@ -54,8 +56,23 @@ def masked_attention_plain(q, k, v, kv_mask):
     return o.to(v.dtype)
 
 
+def kernel_width(Dh: int) -> bool:
+    """The head widths both kernels take (``hopper::kernel_width``): any
+    from 1 to ``MAX_DH``."""
+    return 1 <= Dh <= MAX_DH
+
+
+def check_kernel_width(Dh: int):
+    """Raise ValueError on the card for a head width no kernel takes."""
+    if not kernel_width(Dh):
+        raise ValueError(f"head width {Dh}: no attention kernel takes a head wider than {MAX_DH}")
+
+
 def check_inputs(q, k, v, kv_mask):
-    """Raise ValueError on anything the kernel does not take."""
+    """Raise ValueError on what no route takes (the kernel's or the plain
+    version's): shapes that do not match, an empty attention, another dtype,
+    mixed devices, strided heads.  Any head width passes here: the wrappers
+    refuse one past ``MAX_DH`` on the card."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be (B, T, H, Dh)")
     B, Tq, H, Dh = q.shape
@@ -66,8 +83,6 @@ def check_inputs(q, k, v, kv_mask):
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} must be (B, Tk) = {(B, Tk)}")
     if min(B, Tq, Tk, H, Dh) < 1:
         raise ValueError("empty attention")
-    if Dh % 8 != 0 or Dh > MAX_DH:
-        raise ValueError(f"head width {Dh} must be a multiple of 8, at most {MAX_DH}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if kv_mask.dtype != torch.float32:
@@ -103,6 +118,7 @@ def masked_attention(q, k, v, kv_mask):
         raise RuntimeError("masked_attention is forward-only: differentiated attention "
                            "goes through ops/train_flash_attention.py (ops/route.attend)")
     B, Tq, H, Dh = q.shape
+    check_kernel_width(Dh)
     Tk = k.shape[1]
     o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     route = ctypes.c_int(-1)

@@ -12,9 +12,10 @@ rows are not masked: every caller multiplies them away, and the gradients
 are exact because dO is 0 there.
 
 For a tensor on the CPU the wrapper runs the plain version (differentiated
-by autograd); for a CUDA tensor it launches the kernel or raises.  The
-launchers report the route each forward and backward took (tensor cores or
-SIMT, ``route.tensor_core_route``'s rule), counted in ``launches_tc`` and
+by autograd); for a CUDA tensor it launches the kernel or raises, at any
+head width up to ``MAX_DH`` (``kernel_width``).  The launchers report the
+route each forward and backward took (tensor cores or SIMT,
+``route.tensor_core_route``'s rule), counted in ``launches_tc`` and
 ``backward_launches_tc``.
 """
 
@@ -25,7 +26,7 @@ import ctypes
 import torch
 
 from .attention import NEG_INF
-from .masked_attention import _DTYPE_CODE, check_inputs
+from .masked_attention import _DTYPE_CODE, check_inputs, check_kernel_width
 
 _fns = None
 
@@ -149,6 +150,7 @@ def train_flash_attention(q, k, v, kv_mask, causal: bool = False):
         return train_flash_attention_plain(q, k, v, kv_mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no training-attention kernel for device {q.device}")
+    check_kernel_width(q.shape[-1])
     return _TrainFlashAttention.apply(q, k, v, kv_mask, bool(causal))
 
 

@@ -38,7 +38,7 @@ import torch
 _K1, _K2 = "masked_attention", "train_flash_attention"
 _HEADER = "hopper_attention.cuh"
 _TO_SIMT = (_HEADER,
-            "return dtype == 1 && (Dh == 8 || Dh == 16 || Dh == 32 || Dh == 64) && aligned;",
+            "return dtype == 1 && tc_width(Dh) && aligned;",
             "return false;")
 #: (variant, library, [(file in csrc/, text, replacement)]); each library's
 #: "tree" is its sources as they are
@@ -47,8 +47,8 @@ VARIANTS = [
     ("simt", _K1, [_TO_SIMT]),
     ("fwd_s2", _K1, [(_HEADER, "constexpr int kFwdStages = 3;", "constexpr int kFwdStages = 2;")]),
     ("fwd_s4", _K1, [(_HEADER, "constexpr int kFwdStages = 3;", "constexpr int kFwdStages = 4;")]),
-    ("fwd_lb4", _K1, [(_HEADER, "__launch_bounds__(160, 3)\nfwd_kernel",
-                       "__launch_bounds__(160, 4)\nfwd_kernel")]),
+    ("fwd_lb4", _K1, [(_HEADER, "kFwdBlocks = DH == 128 ? 1 : 3;",
+                       "kFwdBlocks = DH == 128 ? 1 : 4;")]),
     ("tree", _K2, []),
     ("simt", _K2, [_TO_SIMT]),
     ("bwd_s2", _K2, [(_HEADER, "constexpr int kStages = 3;", "constexpr int kStages = 2;")]),

@@ -943,4 +943,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from .utils.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

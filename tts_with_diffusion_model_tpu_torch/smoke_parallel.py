@@ -339,6 +339,7 @@ def worker(argv) -> int:
     rank = distributed.global_rank()
     (args.out / f"{args.scenario}_rank{rank}.json").write_text(json.dumps(rec))
     distributed.barrier()
+    distributed.shutdown_distributed()
     return 0
 
 

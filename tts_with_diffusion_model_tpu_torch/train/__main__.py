@@ -1,4 +1,9 @@
 from .train import main
 
 if __name__ == "__main__":
-    main()
+    from ..utils.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

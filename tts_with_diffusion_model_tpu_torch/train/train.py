@@ -327,4 +327,9 @@ def main(cfg: Config | None = None, logger=None):
 
 
 if __name__ == "__main__":
-    main()
+    from ..utils.distributed import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -66,6 +66,18 @@ def init_distributed(device="cuda") -> bool:
     return True
 
 
+def shutdown_distributed() -> None:
+    """Tear down the process group this process joined (a no-op for a world
+    of one): the last call of every entry point that torchrun may launch
+    (serve's leader and followers, train, export, codec train), in a
+    ``finally`` of its ``__main__`` block.  A group left up at exit is
+    destroyed during the interpreter's teardown, where it aborted a rank
+    now and then after its work was done ("terminate called without an
+    active exception")."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
 def backend() -> str | None:
     return dist.get_backend() if is_initialized() else None
 
