@@ -41,14 +41,15 @@ published widths for 2 steps from seeded weights, each served through a
 kernel-1 launches per batch, every bf16 launch of both kernels on the
 tensor cores) with fp32 codes held identical alone and in a
 cohort of 4 through the ``Batcher``; then wide heads (``smoke_wide.py``):
-both kernels held to their plain versions at Dh 40, 80, 96 and 128 (bf16 on
-the tensor cores, fp32 on the SIMT kernels) and at Dh 4, 12, 136 and 256
-(the SIMT kernels in both dtypes), forward and backward, and the registry
-D3PM and NAR with
-fewer, wider heads (``model_overrides`` {n_heads: 4} and {n_heads: 8}, Dh
-128) trained 4 steps each (52 + 28 and 24 + 12 kernel-2 launches per step),
-exported and served with MaskGIT (376 kernel-1 launches per batch), every
-launch on the tensor cores; then codec + evals: a
+both kernels held to their plain versions at Dh 4, 12, 40, 80, 96, 128,
+136, 200, 250 and 256 (bf16 on the tensor cores, the widths off 8 on
+zero-padded copies; fp32 on the SIMT kernels), forward and backward, and
+the registry D3PM and NAR with fewer, wider heads (``model_overrides``
+{n_heads: 4} and {n_heads: 8}, Dh 128, and {n_heads: 2} and {n_heads:
+4}, Dh 256, trained 4 steps each; 52 + 28 and 24 + 12 kernel-2 launches
+per step), exported and served with MaskGIT (376
+kernel-1 launches per batch), every launch on the tensor cores; then codec
++ evals: a
 ``make_gen_corpus.py`` corpus (8 speakers × 11 utterances), ``codec.calibrate``
 at 8 levels × 1024 codes × 128 dims from the seeded codec (the residual RMS
 falling level by level), ``emb.qnt`` with the calibrated codec, 8 steps of
@@ -69,7 +70,8 @@ shape.
 Builds every
 CUDA kernel from the sources in this checkout with ``nvcc`` and counts the
 wgmma (HGMMA, and HGMMA at each of the shapes 64x8x16, 64x16x16, 64x32x16,
-64x64x16 and 64x128x16) and TMA (UTMALDG) instructions in each library,
+64x64x16, 64x128x16 and 64x256x16) and TMA (UTMALDG) instructions in each
+library,
 holds each kernel against its plain PyTorch version at every shape these
 paths give it
 (printing each site's kernel/SDPA and kernel/bound ratios and its launches
@@ -307,33 +309,37 @@ def main() -> int:
     train_results += g_train
     del gs
     torch.cuda.empty_cache()
-    # wide heads: both kernels at head widths off the registry's (on the
-    # SIMT kernels where the tensor cores do not take the width), then the
-    # registry D3PM and NAR at Dh 128 through train -> export -> serve
-    wide_yamls = smoke_wide.write_configs()
+    # wide heads: both kernels at head widths off the registry's (bf16 on
+    # the tensor cores at every width), then the registry D3PM and NAR at
+    # Dh 128 and at Dh 256 through train -> export -> serve
+    wide_yamls = {tag: smoke_wide.write_configs(smoke.SMOKE_DIR / tag, heads)
+                  for tag, heads in smoke_wide.TAGS.items()}
     with smoke.phase("wide heads kernel vs plain"):
         w_serve, w_train = smoke_wide.phase_kernel_check(
-            device, wide_yamls, len(smoke.TEXTS), seed=args.seed)
-    with smoke.phase("train -> export -> serve wide heads"):
-        wide = smoke_wide.phase_wide(device, wide_yamls, seed=args.seed, repeats=args.repeats,
-                                     smi=info["smi"])
-    for name, path, want in (("diffusion", "wide d3pm", (52, 28)), ("nar", "wide nar", (24, 12))):
-        r = wide["runs"][name]
-        smoke.check((r["fwd_per_step"], r["bwd_per_step"]) == want,
-                    f"{path}: kernel-2 launches per step {r['fwd_per_step']}+"
-                    f"{r['bwd_per_step']} != {want[0]}+{want[1]}")
-        runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
-        runs_tc[path] = r["run_launches_tc"]
-    served = wide["served"]
-    smoke.check(served["prompt_bucket"] == 256 and served["expected"] == 376,
-                f"serve wide: prompt bucket {served['prompt_bucket']}, expected launches "
-                f"{served['expected']} != 256, 376")
-    paths["wide maskgit"] = dict(smoke_gaussian.path_totals(w_serve, served["sites"],
-                                                            served["launches"]),
-                                 launches_tc_run=served["launches_tc"])
+            device, wide_yamls["wide"], len(smoke.TEXTS), seed=args.seed,
+            wider=wide_yamls["wide256"])
+    for tag in smoke_wide.TAGS:
+        with smoke.phase(f"train -> export -> serve {tag} heads"):
+            wide = smoke_wide.phase_wide(device, wide_yamls[tag], seed=args.seed,
+                                         repeats=args.repeats, smi=info["smi"], tag=tag)
+        for name, path, want in (("diffusion", f"{tag} d3pm", (52, 28)),
+                                 ("nar", f"{tag} nar", (24, 12))):
+            r = wide["runs"][name]
+            smoke.check((r["fwd_per_step"], r["bwd_per_step"]) == want,
+                        f"{path}: kernel-2 launches per step {r['fwd_per_step']}+"
+                        f"{r['bwd_per_step']} != {want[0]}+{want[1]}")
+            runs.append((path, r["fwd_per_step"], r["bwd_per_step"], r["run_launches"]))
+            runs_tc[path] = r["run_launches_tc"]
+        served = wide["served"]
+        smoke.check(served["prompt_bucket"] == 256 and served["expected"] == 376,
+                    f"serve {tag}: prompt bucket {served['prompt_bucket']}, expected launches "
+                    f"{served['expected']} != 256, 376")
+        paths[f"{tag} maskgit"] = dict(smoke_gaussian.path_totals(w_serve, served["sites"],
+                                                                  served["launches"]),
+                                       launches_tc_run=served["launches_tc"])
+        del wide, served
+        torch.cuda.empty_cache()
     train_results += w_train
-    del wide, served
-    torch.cuda.empty_cache()
     # the codec's bootstrap and the four evaluations over the exported bundles
     with smoke.phase("codec + evals"):
         ce = smoke_codec.phase_codec_evals(

@@ -2,7 +2,8 @@
 against the Pallas kernel run in interpret mode and against the pair-mask
 dense path (valid query rows), both plain versions (forward and gradients)
 against ``_dense_ref`` at the Gaussian family's head widths and at widths
-off the registry's (4, 12, 40, 80, 128, 136, through ``route.attend``),
+off the registry's (4, 12, 40, 80, 128, 136, 200, 250 and 256, through
+``route.attend``),
 and the wrapper's input checks.  The CUDA kernel itself is held against the plain
 version in ``test_torch_gpu.py`` and ``test_torch_gaussian_gpu.py``."""
 
@@ -71,10 +72,10 @@ def test_plain_versions_match_dense_ref_at_the_gaussian_head_widths(Dh):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
-#: head widths off the registry's: between and past the kernels'
-#: instantiations (40, 80, 128) and widths only the SIMT kernels take (4,
-#: 12, 136)
-WIDTHS = [4, 12, 40, 80, 128, 136]
+#: head widths off the registry's: between and at the kernels'
+#: instantiations (40, 80, 128, 136, 200, 256) and widths that are not a
+#: multiple of 8 (4, 12, 250: zero-padded copies on the card in bf16)
+WIDTHS = [4, 12, 40, 80, 128, 136, 200, 250, 256]
 
 
 @pytest.mark.parametrize("Dh", WIDTHS)
@@ -82,8 +83,9 @@ def test_plain_versions_match_jax_at_every_head_width(Dh):
     """Both plain versions against JAX's ``_dense_ref``, forward and dq, dk,
     dv, with an all-masked row; kernel 1's also against the Pallas kernel
     in interpret mode where its ``supported`` takes the width (Dh % 8 == 0).
-    ``route.attend`` runs each width on the CPU, with and without grad (the
-    SIMT kernels at 4, 12 and 136 on the card, in bf16 too)."""
+    ``route.attend`` runs each width on the CPU, with and without grad (on
+    the card in bf16 the tensor cores at every width, the widths off 8 on
+    padded copies)."""
     from tts_with_diffusion_model_tpu.ops.flash_attention import supported
     from tts_with_diffusion_model_tpu_torch.ops.route import attend
 

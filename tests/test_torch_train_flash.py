@@ -81,12 +81,13 @@ def test_plain_matches_the_library_tpu_kernel_in_interpret_mode(B, Tq, Tk, H, Dh
 
 
 @pytest.mark.parametrize("Dh,causal", [(4, False), (12, True), (40, False), (80, True),
-                                      (128, False), (136, True)])
+                                      (128, False), (136, True), (200, False), (250, True),
+                                      (256, False), (256, True)])
 def test_plain_matches_the_library_tpu_kernel_at_every_head_width(Dh, causal):
-    """Head widths off the registry's, in fp32: between and past the
-    kernels' instantiations (40, 80, 128) and widths only the SIMT kernels
-    take on the card (4, 12, 136).  The library kernel takes
-    the head width whole in its blocks."""
+    """Head widths off the registry's, in fp32: between and at the kernels'
+    instantiations (40, 80, 128, 136, 200, 256) and widths that are not a
+    multiple of 8 (4, 12, 250: zero-padded copies on the card in bf16).
+    The library kernel takes the head width whole in its blocks."""
     q, k, v, km, do = _inputs(2, 40, 64, 2, Dh, seed=Dh)
     with pltpu.force_tpu_interpret_mode():
         ref = _jax_fwd_grads(lambda a, b, c, m: _train_flash_attention(a, b, c, m, causal=causal),

@@ -1,16 +1,17 @@
 // Hopper (sm_90a) building blocks shared by csrc/masked_attention.cu and
 // csrc/train_flash_attention.cu, and the one forward mainloop both use.
 // Everything that depends on the head width is a template on DH, one of
-// 8, 16, 32, 64 and 128 (Width<DH>); each is its own instantiation, and a
-// head width Dh between two of them (any multiple of 8 up to 128) runs at
-// the next one up (instantiated_width): 24 at 32, 40-56 at 64, 72-120 at 128.
+// 8, 16, 32, 64, 128 and 256 (Width<DH>); each is its own instantiation,
+// and a head width Dh between two of them (any multiple of 8 up to 256)
+// runs at the next one up (instantiated_width): 24 at 32, 40-56 at 64,
+// 72-120 at 128, 136-248 at 256.
 //
 // * Tensor maps: a 4-D TMA map over a (B, T, H, Dh) bf16 tensor, read as
 //   (Dh, H, T, B) innermost first with the caller's batch and time strides,
 //   so a strided view (the NAR's split of a fused qkv) is read in place.  A
-//   tile is 64 rows of one head in panels of at most 64 columns: DH 128 is
-//   two 64-column panels, each its own box at column 0 or 64, the others
-//   one panel of DH columns.  A box is PW x 1 x 64 x 1 (PW the panel's
+//   tile is 64 rows of one head in panels of at most 64 columns: DH 128 and
+//   256 are two and four 64-column panels, each its own box at column 0,
+//   64, 128 or 192, the others one panel of DH columns.  A box is PW x 1 x 64 x 1 (PW the panel's
 //   columns), one PW·2-byte row each, stored with the swizzle whose span is
 //   the row: 128-byte at PW 64, 64-byte at 32, 32-byte at 16, none at 8
 //   (16-byte rows, the smallest inner box TMA takes).  The map's inner
@@ -46,7 +47,8 @@
 // * K-major (the head width is the reduced dimension: Q, K, V, dO in S, dP,
 //   Sᵀ, dPᵀ): stride between 8-row groups SBO = PW; a k16 step starts 32
 //   bytes further into each row, and after PW / 16 steps the next panel
-//   begins (DH 128: steps 4-7 read the second panel).  Swizzled, the second
+//   begins (DH 128: steps 4-7 read the second panel; DH 256: steps 4p to
+//   4p+3 read panel p).  Swizzled, the second
 //   8-column half of a k16 step lies inside the swizzle span and LBO is
 //   unused.  At DH 8 (no swizzle) the k16 step's upper half is the core
 //   matrix LBO further on: the descriptor points it at a zeroed 1 KB block
@@ -57,9 +59,10 @@
 //   operand of P·V, Pᵀ·dO, dSᵀ·Q, dS·K): a k16 step covers rows
 //   16kk..16kk+15, 16·PW·2 bytes on; its two 8-row groups are PW units
 //   apart: SBO when swizzled, and LBO is the distance between the 64-column
-//   swizzle atoms along N (DH 128: the second panel, 8 KB on; unused when N
-//   fits one atom); LBO without swizzle (DH 8: N is one core matrix, SBO
-//   unused).
+//   swizzle atoms along N (DH 128 and 256: the next panel, 8 KB on; unused
+//   when N fits one atom); LBO without swizzle (DH 8: N is one core matrix,
+//   SBO unused).  A product over columns c0.. of a wider tile (the DH-256
+//   dK/dV halves) starts its descriptor at panel c0 / 64.
 
 #pragma once
 
@@ -76,25 +79,20 @@ namespace hopper {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;                  // rows of a tile (queries or keys)
-// Depth of the backward's TMA rings: three stages, faster than two at every
-// width where the dK/dV and dQ kernels were timed (scripts/kernel_variants.py,
-// PERF.md).
-constexpr int kStages = 3;
 constexpr float kNegInf = -0.7f * FLT_MAX;  // the masked score (finite)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kDhMax = 256;    // the widest head either kernel takes
-constexpr int kTcDhMax = 128;  // the widest head on the tensor cores
+constexpr int kDhMax = 256;  // the widest head either kernel takes
 
 // What a head width fixes on this path.
 template <int DH>
 struct Width {
-  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64 || DH == 128,
-                "head width 8, 16, 32, 64 or 128");
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64 || DH == 128 || DH == 256,
+                "head width 8, 16, 32, 64, 128 or 256");
   static constexpr int kTileBytes = kRows * DH * 2;  // one 64-row bf16 tile
   static constexpr int kPanelCols = DH < 64 ? DH : 64;  // columns of a panel (PW)
-  static constexpr int kPanels = DH / kPanelCols;       // 2 at DH 128, else 1
+  static constexpr int kPanels = DH / kPanelCols;       // 2 at DH 128, 4 at 256, else 1
   static constexpr int kPanelBytes = kRows * kPanelCols * 2;
   // k16 steps over the head width (DH 8: one, its upper half zeros), and
   // those within one panel
@@ -112,39 +110,54 @@ struct Width {
       : kPanelCols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
                          : CU_TENSOR_MAP_SWIZZLE_NONE;
   // Blocks per SM the kernels are compiled for.  At DH 128 a block's ring
-  // takes 114-131 KB of shared memory, so one block fits an SM whatever the
-  // registers; one block lets a thread hold the dK/dV kernel's two 64-float
-  // accumulators with the score tiles (up to 255 registers) without spills.
-  static constexpr int kFwdBlocks = DH == 128 ? 1 : 3;
-  static constexpr int kDkdvBlocks = DH == 128 ? 1 : 2;
-  static constexpr int kDqBlocks = DH == 128 ? 1 : 3;
+  // takes 114-131 KB of shared memory and at 256 198-231 KB, so one block
+  // fits an SM whatever the registers; one block lets a thread hold the
+  // dK/dV kernel's two 64-float accumulators, or a 128-float DH-256 one,
+  // with the score tiles (up to 255 registers) without spills.
+  static constexpr int kFwdBlocks = DH >= 128 ? 1 : 3;
+  static constexpr int kDkdvBlocks = DH >= 128 ? 1 : 2;
+  static constexpr int kDqBlocks = DH >= 128 ? 1 : 3;
+  // Depth of the TMA rings.  The forward keeps three stages at every width
+  // (fwd_smem_bytes: 231,248 bytes at DH 256, under the 232,448 a block may
+  // use).  The backward's three stages were faster than two at every width
+  // where the dK/dV and dQ kernels were timed (scripts/kernel_variants.py,
+  // PERF.md); at DH 256 three stages need 263-266 KB, so its rings take two
+  // (198-199 KB).
+  static constexpr int kFwdStages = 3;
+  static constexpr int kBwdStages = DH == 256 ? 2 : 3;
+  // dK/dV blocks per 64-key tile, each accumulating DH / kDkdvSplit columns
+  // of dK and dV: one DH-256 warpgroup cannot hold two m64n256 accumulators
+  // (256 floats a thread), so two blocks share a key tile, each forming the
+  // whole Sᵀ and dPᵀ (bwd_dkdv_wgmma_kernel).
+  static constexpr int kDkdvSplit = DH == 256 ? 2 : 1;
 };
 
-// The instantiation a head width Dh on the tensor cores (tc_width) runs at.
+// The instantiation a head width Dh on the tensor cores (bf16, a multiple
+// of 8) runs at.
 inline int instantiated_width(int Dh) {
-  return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : 128;
+  return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128 : 256;
 }
 
-// The head widths the kernels take: any from 1 to kDhMax.  Wider heads are
-// refused by the launchers and by the wrappers
+// The head widths the kernels take: any from 1 to kDhMax in fp32, the
+// multiples of 8 (TMA's 16-byte stride rule) in bf16.  A bf16 call at
+// another width is the wrappers' to make, and only theirs: they launch it
+// on copies zero-padded to the next multiple of 8 with the true width's
+// scale and slice the results back (ops/route.py); the launchers refuse it
+// unpadded.  Wider heads are refused by the launchers and by the wrappers
 // (ops/masked_attention.kernel_width).
-inline bool kernel_width(int Dh) { return Dh >= 1 && Dh <= kDhMax; }
-
-// The head widths the tensor-core path takes: multiples of 8 (TMA's 16-byte
-// stride rule) up to kTcDhMax.
-inline bool tc_width(int Dh) { return Dh >= 8 && Dh <= kTcDhMax && Dh % 8 == 0; }
+inline bool kernel_width(int Dh, int dtype) {
+  return Dh >= 1 && Dh <= kDhMax && (dtype == 0 || Dh % 8 == 0);
+}
 
 // The route of a call, the one rule both launchers follow (and that
-// ops/route.tensor_core_route states in Python): bf16 at a tc_width with
-// every tensor TMA-aligned (tma_ok) runs on the tensor cores; fp32,
-// unaligned views and the other widths the kernels take on the SIMT kernels.
-inline bool tensor_core_route(int dtype, int Dh, bool aligned) {
-  return dtype == 1 && tc_width(Dh) && aligned;
-}
+// ops/route.tensor_core_route states for the wrappers' calls): bf16 with
+// every tensor TMA-aligned (tma_ok) runs on the tensor cores; fp32 and
+// unaligned bf16 views run on the SIMT kernels.
+inline bool tensor_core_route(int dtype, bool aligned) { return dtype == 1 && aligned; }
 
 // The SIMT kernels hold a row at DW, the head width Dh rounded up to 8, 16,
 // 32, 64, 128 or 256 (columns past Dh are 0; any Dh, its loads scalar).
-inline int simt_width(int Dh) { return Dh <= 128 ? instantiated_width(Dh) : 256; }
+inline int simt_width(int Dh) { return instantiated_width(Dh); }
 
 // At DW 128 and 256 two and four neighbouring threads share a row, 64
 // columns each, and add their partial dot products with shuffles (row_sum),
@@ -265,7 +278,8 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int H, int
 // Narrower heads keep the same shape: the accumulators shrink with DH and
 // the grids of the Gaussian sites (a few hundred blocks) fit in one wave.
 // At DH 128 a block's ring fills half an SM's shared memory and the
-// accumulators double, so each kernel runs one block per SM (Width::k*Blocks).
+// accumulators double, so each kernel runs one block per SM (Width::k*Blocks);
+// at DH 256 the rings fill the SM.
 
 // ---------------------------------------------------------------- device side
 
@@ -421,6 +435,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
+#define HA_ACC128(d) \
+  HA_ACC64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), \
+      "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), \
+      "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+      "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), \
+      "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), \
+      "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+      "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), \
+      "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
 #define HA_REGS4 "{%0, %1, %2, %3}"
 #define HA_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define HA_REGS16 \
@@ -435,6 +464,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+
+#define HA_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127}"
 
 // D (64 x 64, fp32) (+)= A (64 x 16) · B (16 x 64), both from shared memory.
 // TA / TB: 0 = K-major, 1 = MN-major.  accumulate = 0 overwrites D.
@@ -471,8 +512,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     HA_WGMMA_RS(32, HA_REGS16, HA_ACC16, 16, 17, 18, 19, 20, 21, 22);
   else if constexpr (N == 64)
     HA_WGMMA_RS(64, HA_REGS32, HA_ACC32, 32, 33, 34, 35, 36, 37, 38);
-  else
+  else if constexpr (N == 128)
     HA_WGMMA_RS(128, HA_REGS64, HA_ACC64, 64, 65, 66, 67, 68, 69, 70);
+  else
+    HA_WGMMA_RS(256, HA_REGS128, HA_ACC128, 128, 129, 130, 131, 132, 133, 134);
 }
 
 // D (64 x 64) = A · Bᵀ over the head width (DH / 16 k16 steps; at DH 8 one
@@ -485,13 +528,15 @@ __device__ __forceinline__ void gemm_abt(float (&d)[32], const void* a, const vo
     wgmma_ss<0, 0>(d, desc_kmajor<DH>(a, kk, zero), desc_kmajor<DH>(b, kk, zero), kk > 0);
 }
 
-// D (64 x DH) += P · B over 64 rows of B (four k16 steps), P from
-// registers, B read transposed (MN-major) from its tile.
-template <int DH>
-__device__ __forceinline__ void gemm_pb(float (&d)[DH / 2], const uint32_t (&p)[4][4],
+// D (64 x N) += P · B over 64 rows of B (four k16 steps), P from
+// registers, B read transposed (MN-major) from its tile: the tile's first N
+// columns (N = DH), or N columns from panel b (a panel-aligned pointer into
+// a DH-wide tile, N < DH).
+template <int DH, int N = DH>
+__device__ __forceinline__ void gemm_pb(float (&d)[N / 2], const uint32_t (&p)[4][4],
                                         const void* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1, DH>(d, p[kk], desc_mnmajor<DH>(b, kk), 1);
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1, N>(d, p[kk], desc_mnmajor<DH>(b, kk), 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -530,21 +575,23 @@ struct FwdParams {
   float scale_log2;   // Dh^-0.5 · log2(e)
 };
 
-// The forward keeps three K/V stages: the tile whose P·V is in flight, the
-// tile being scored, and the one being loaded.  At DH <= 32 the smaller
-// tiles leave room for a deeper ring or more blocks per SM; timed at the
-// Gaussian and D3PM sites (scripts/kernel_variants.py, PERF.md), a fourth
-// stage gains nothing (a block walks at most 7 key tiles, and its chain of
-// S, softmax and P·V, not the loads, sets its time), two stages are slower,
-// and a bound of four blocks per SM is slower at DH 32 and 64.  At DH 128
-// the three stages take 114 KB, one block per SM.
-constexpr int kFwdStages = 3;
-
+// The forward keeps three K/V stages (Width::kFwdStages): the tile whose
+// P·V is in flight, the tile being scored, and the one being loaded.  At
+// DH <= 32 the smaller tiles leave room for a deeper ring or more blocks
+// per SM; timed at the Gaussian and D3PM sites (scripts/kernel_variants.py,
+// PERF.md), a fourth stage gains nothing (a block walks at most 7 key
+// tiles, and its chain of S, softmax and P·V, not the loads, sets its
+// time), two stages are slower, and a bound of four blocks per SM is slower
+// at DH 32 and 64.  At DH 128 the three stages take 114 KB, at DH 256 226
+// KB: one block per SM.
 template <int DH>
 constexpr int fwd_smem_bytes() {
-  return 1024 + (1 + 2 * kFwdStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
-         kFwdStages * (kRows + 2) * 4 + (2 * kFwdStages + 1) * 8;
+  constexpr int S = Width<DH>::kFwdStages;
+  return 1024 + (1 + 2 * S) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         S * (kRows + 2) * 4 + (2 * S + 1) * 8;
 }
+static_assert(fwd_smem_bytes<256>() <= 232448, "the DH-256 forward's ring exceeds a block's "
+              "shared memory");
 
 // One block per (query tile of 64 rows, head, batch): one consumer
 // warpgroup (warps 0..3) and one producer warp (warp 4).  The producer
@@ -556,7 +603,8 @@ constexpr int fwd_smem_bytes() {
 // P·V of tile kt-1 are issued together, and the softmax of tile kt runs
 // while P·V is in flight (FlashAttention-3's intra-warpgroup overlap); O is
 // rescaled before the next P·V is issued.  At least three blocks per SM
-// (at most 136 registers a thread at DH 64, fewer below); one at DH 128.
+// (at most 136 registers a thread at DH 64, fewer below); one at DH 128
+// and 256 (at 256 the m64n256 O accumulator is 128 floats a thread).
 // Columns past p.Dh (when DH > p.Dh) are zeros in every tile, and O's are
 // not stored.
 template <bool kLse, int DH>
@@ -564,7 +612,7 @@ __global__ void __launch_bounds__(160, Width<DH>::kFwdBlocks)
 fwd_kernel(const __grid_constant__ CUtensorMap map_q,
            const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
-  constexpr int S = kFwdStages;
+  constexpr int S = Width<DH>::kFwdStages;
   constexpr int kTile = Width<DH>::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
@@ -807,20 +855,22 @@ inline int set_smem(Kernel kernel, int bytes) {
 
 // The forward on the Hopper path: q (B, Tq, H, Dh), k, v (B, Tk, H, Dh)
 // bf16 with element strides, Dh <= DH; o written with its strides; lse
-// (B, H, Tq) when kLse.  Returns 0 when launched, else an error code.
+// (B, H, Tq) when kLse; scores scaled by `scale` (the true head width's
+// Dh^-0.5, which a padded copy keeps).  Returns 0 when launched, else an
+// error code.
 template <bool kLse, int DH>
 inline int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                       void* o, float* lse, long long q_sb, long long q_st,
                       long long k_sb, long long k_st, long long v_sb, long long v_st,
                       long long o_sb, long long o_st, int B, int Tq, int Tk, int H, int Dh,
-                      int causal, cudaStream_t stream) {
+                      int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int rc = make_map<DH>(&mq, q, B, Tq, H, Dh, q_sb, q_st);
   if (rc == 0) rc = make_map<DH>(&mk, k, B, Tk, H, Dh, k_sb, k_st);
   if (rc == 0) rc = make_map<DH>(&mv, v, B, Tk, H, Dh, v_sb, v_st);
   if (rc != 0) return rc;
   FwdParams p{mask, static_cast<bf16*>(o), lse, o_sb, o_st, Tq, Tk, H, Dh, causal,
-              kLog2e / sqrtf((float)Dh)};
+              scale * kLog2e};
   constexpr int smem = fwd_smem_bytes<DH>();
   static const int attr = set_smem(fwd_kernel<kLse, DH>, smem);
   if (attr != 0) return attr;
@@ -829,23 +879,24 @@ inline int launch_fwd(const void* q, const void* k, const void* v, const float* 
   return (int)cudaGetLastError();
 }
 
-// launch_fwd at the instantiation of head width Dh (a tc_width; the caller
-// checked).
+// launch_fwd at the instantiation of head width Dh (a multiple of 8; the
+// caller checked).
 template <bool kLse>
 inline int launch_fwd_at(int Dh, const void* q, const void* k, const void* v,
                          const float* mask, void* o, float* lse, long long q_sb,
                          long long q_st, long long k_sb, long long k_st, long long v_sb,
                          long long v_st, long long o_sb, long long o_st, int B, int Tq,
-                         int Tk, int H, int causal, cudaStream_t stream) {
+                         int Tk, int H, int causal, float scale, cudaStream_t stream) {
 #define HA_FWD(DH)                                                                     \
   launch_fwd<kLse, DH>(q, k, v, mask, o, lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, \
-                       o_st, B, Tq, Tk, H, Dh, causal, stream)
+                       o_st, B, Tq, Tk, H, Dh, causal, scale, stream)
   switch (instantiated_width(Dh)) {
     case 8: return HA_FWD(8);
     case 16: return HA_FWD(16);
     case 32: return HA_FWD(32);
     case 64: return HA_FWD(64);
-    default: return HA_FWD(128);
+    case 128: return HA_FWD(128);
+    default: return HA_FWD(256);
   }
 #undef HA_FWD
 }

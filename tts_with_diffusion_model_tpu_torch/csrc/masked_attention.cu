@@ -22,12 +22,15 @@
 // of device memory (online softmax in registers over 64-key tiles), and
 // needs no second pass or workspace: each attention is one launch.
 //
-// The bf16 path at every multiple of 8 up to 128 (hopper::tc_width) with 16-byte aligned views (every call of the serving paths, the
-// Gaussian family's and the Dh-128 models' included) is the forward
-// mainloop of csrc/hopper_attention.cuh, instantiated at 8, 16, 32, 64 and
-// 128 (a width between them runs at the next one up, the tiles' columns
-// past Dh zero-filled by TMA), shared with the training kernel's forward
-// (here without the log-sum-exp and causality).  Against what held the mma.sync version back:
+// The bf16 path at every multiple of 8 up to 256 (hopper::kernel_width) with
+// 16-byte aligned views (every call of the serving paths, the Gaussian
+// family's and the Dh-128 and Dh-256 models' included; the wrapper pads
+// another width to the next multiple of 8, keeping the true width's scale)
+// is the forward mainloop of csrc/hopper_attention.cuh, instantiated at 8,
+// 16, 32, 64, 128 and 256 (a width between them runs at the next one up,
+// the tiles' columns past Dh zero-filled by TMA), shared with the training
+// kernel's forward (here without the log-sum-exp and causality).  Against
+// what held the mma.sync version back:
 //  1. loads: a producer warp keeps a 3-stage ring of K/V tiles filled by
 //     TMA (full/empty mbarriers), so loads run under the products; Q is
 //     loaded once per block;
@@ -45,9 +48,8 @@
 // One consumer warpgroup of 64 query rows per block (hopper_attention.cuh):
 // DiT serving at B = 4 gives only 192 blocks, and two warpgroups per block
 // measured slower at every serving shape, the NAR's included.
-// fp32, unaligned views and the other widths (not a multiple of 8, or 136
-// to 256): one thread per query row (two at DW 128, four at DW 256, each
-// holding 64 columns) on the CUDA cores in fp32, q and the output
+// fp32 and unaligned bf16 views: one thread per query row (two at DW 128,
+// four at DW 256, each holding 64 columns) on the CUDA cores in fp32, q and the output
 // accumulators in registers, K/V tiles read from shared memory as
 // broadcasts, each held at the head width rounded up to 8, 16, 32, 64, 128
 // or 256 (DW, hopper::simt_width), loaded element by element so that any
@@ -204,23 +206,23 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DW>
 int launch_at(const void* q, const void* k, const void* v, const float* mask, void* o,
               int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st, int o_sb, int o_st,
-              int B, int Tq, int Tk, int H, int Dh, cudaStream_t stream) {
+              int B, int Tq, int Tk, int H, int Dh, float scale, cudaStream_t stream) {
   const dim3 grid((Tq + kQTile - 1) / kQTile, H, B);
   masked_attention_kernel<T, DW><<<grid, kQTile * Simt<DW>::kSplit, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), q_sb, q_st, k_sb,
-      k_st, v_sb, v_st, o_sb, o_st, Tq, Tk, Dh, rsqrtf((float)Dh));
+      k_st, v_sb, v_st, o_sb, o_st, Tq, Tk, Dh, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* o, int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st,
-           int o_sb, int o_st, int B, int Tq, int Tk, int H, int Dh,
+           int o_sb, int o_st, int B, int Tq, int Tk, int H, int Dh, float scale,
            cudaStream_t stream) {
 #define MA_SIMT(DW) \
   launch_at<T, DW>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, \
-                   Tk, H, Dh, stream)
+                   Tk, H, Dh, scale, stream)
   switch (hopper::simt_width(Dh)) {
     case 8: return MA_SIMT(8);
     case 16: return MA_SIMT(16);
@@ -232,18 +234,19 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 #undef MA_SIMT
 }
 
-bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
+bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype, float scale) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 &&
-         hopper::kernel_width(Dh) && (dtype == 0 || dtype == 1);
+         (dtype == 0 || dtype == 1) && hopper::kernel_width(Dh, dtype) && scale > 0.f &&
+         scale < INFINITY;
 }
 
 // The launcher's route: 1 = tensor cores (hopper::launch_fwd), 0 = SIMT.
 bool route(const void* q, const void* k, const void* v, const void* o, int q_sb, int q_st,
            int k_sb, int k_st, int v_sb, int v_st, int o_sb, int o_st, int B, int Tq, int Tk,
-           int Dh, int dtype) {
+           int dtype) {
   using hopper::tma_ok;
   return hopper::tensor_core_route(
-      dtype, Dh,
+      dtype,
       tma_ok(q, B, q_sb, Tq, q_st) && tma_ok(k, B, k_sb, Tk, k_st) &&
           tma_ok(v, B, v_sb, Tk, v_st) && tma_ok(o, B, o_sb, Tq, o_st));
 }
@@ -251,7 +254,9 @@ bool route(const void* q, const void* k, const void* v, const void* o, int q_sb,
 }  // namespace
 
 // Strides are in elements; the head and Dh dimensions are dense (head
-// stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.
+// stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.  scale:
+// the scores' factor, Dh^-0.5 of the true head width (a zero-padded copy's
+// Dh is wider).
 // Returns cudaGetLastError() after the launch (0 = launched), -1 when the
 // arguments are outside what the kernel takes, or another nonzero code
 // when a TMA tensor map cannot be encoded.  *route_out (when not null) is
@@ -261,19 +266,20 @@ extern "C" int masked_attention_fwd(const void* q, const void* k,
                                     void* o, int q_sb, int q_st, int k_sb,
                                     int k_st, int v_sb, int v_st, int o_sb,
                                     int o_st, int B, int Tq, int Tk, int H,
-                                    int Dh, int dtype, void* stream, int* route_out) {
-  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
+                                    int Dh, int dtype, float scale, void* stream,
+                                    int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype, scale)) return -1;
   const float* mask = static_cast<const float*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = route(q, k, v, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, Tk,
-                        Dh, dtype);
+  const bool tc =
+      route(q, k, v, o, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, B, Tq, Tk, dtype);
   if (route_out != nullptr) *route_out = tc ? 1 : 0;
   if (tc)
     return hopper::launch_fwd_at<false>(Dh, q, k, v, mask, o, nullptr, q_sb, q_st, k_sb, k_st,
-                                        v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, 0, s);
+                                        v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, 0, scale, s);
   if (dtype == 0)
     return launch<float>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st, v_sb, v_st,
-                         o_sb, o_st, B, Tq, Tk, H, Dh, s);
+                         o_sb, o_st, B, Tq, Tk, H, Dh, scale, s);
   return launch<__nv_bfloat16>(q, k, v, mask, o, q_sb, q_st, k_sb, k_st,
-                               v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, Dh, s);
+                               v_sb, v_st, o_sb, o_st, B, Tq, Tk, H, Dh, scale, s);
 }

@@ -35,13 +35,17 @@
 // probabilities never reach device memory (the only scratch is L and D, 8
 // bytes per query row).
 //
-// The bf16 path at every multiple of 8 up to 128 (hopper::tc_width) with 16-byte aligned views (every call of the training paths, the
-// Gaussian family's and the Dh-128 models' included) is built from
-// csrc/hopper_attention.cuh, instantiated at 8, 16, 32, 64 and 128 (a width
-// between them runs at the next one up, the columns past Dh zero-filled by
-// TMA and never stored); against what held the mma.sync version back:
+// The bf16 path at every multiple of 8 up to 256 (hopper::kernel_width) with
+// 16-byte aligned views (every call of the training paths, the Gaussian
+// family's and the Dh-128 and Dh-256 models' included; the wrapper pads
+// another width to the next multiple of 8) is built from
+// csrc/hopper_attention.cuh, instantiated at 8, 16, 32, 64, 128 and 256 (a
+// width between them runs at the next one up, the columns past Dh
+// zero-filled by TMA and never stored); against what held the mma.sync
+// version back:
 //  1. loads: each block has a producer warp that keeps a ring of 64-row
-//     tiles filled by TMA (3 stages in the forward and the backward),
+//     tiles filled by TMA (3 stages in the forward and the backward; 2 in
+//     the backward at DH 256, whose 3 would exceed a block's shared memory),
 //     full/empty mbarriers in between, so the next tile's load runs under
 //     the current tile's products;
 //  2. transposed operands: the tiles land in shared memory with the
@@ -55,7 +59,9 @@
 //     S of tile k with P·V of tile k-1 and runs the softmax of tile k under
 //     that P·V (one consumer warpgroup per block, three or four blocks per
 //     SM, so the products of one block also run under another's softmax;
-//     one at DH 128, whose ring fills half the SM's shared memory);
+//     one at DH 128, whose ring fills half the SM's shared memory, and at
+//     256); at DH 256 two dK/dV blocks share a key tile, each holding half
+//     of dK's and dV's columns (bwd_dkdv_wgmma_kernel);
 //  4. exponents: scores are pre-scaled by Dh^-0.5·log2 e in one multiply and
 //     exponentiated with exp2f; the backward's per-element work is one
 //     exp2f and a select, with no branch: the producer turns L into
@@ -68,12 +74,11 @@
 //     by element.  Rows with no visible valid key (below the first valid
 //     key) average all Tk values, so their tiles are kept;
 //  6. D pass: DH / 8 threads per row with 16-byte loads.
-// fp32, unaligned views and the other widths (not a multiple of 8, or 136
-// to 256) take SIMT kernels: one thread per query row (forward, dQ) or per
-// key (dK/dV) on the CUDA cores in fp32 (two at DW 128, four at DW 256,
-// each holding 64 columns), rows held at Dh rounded up to 8, 16, 32, 64,
-// 128 or 256 (hopper::simt_width) and loaded element by element.  Wider
-// heads are refused.
+// fp32 and unaligned bf16 views take SIMT kernels: one thread per query row
+// (forward, dQ) or per key (dK/dV) on the CUDA cores in fp32 (two at DW
+// 128, four at DW 256, each holding 64 columns), rows held at Dh rounded up
+// to 8, 16, 32, 64, 128 or 256 (hopper::simt_width) and loaded element by
+// element.  Wider heads are refused.
 // hopper::tensor_core_route is the rule between the two; each launcher
 // reports the route it took.
 // Still left: warp-specialised ping-pong between two consumer warpgroups
@@ -454,14 +459,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// Backward on the Hopper path: bf16, DH = 8, 16, 32, 64 or 128, the head
-// width Dh <= DH (csrc/hopper_attention.cuh; columns past Dh are zeros).
+// Backward on the Hopper path: bf16, DH = 8, 16, 32, 64, 128 or 256, the
+// head width Dh <= DH (csrc/hopper_attention.cuh; columns past Dh are zeros).
 // P_ij = exp2(s_ij·Dh^-0.5·log2 e − L_i·log2 e) at visible entries, 0
 // elsewhere, plus 1/Tk on a row whose L is NEG_INF (all keys masked, no dS);
 // dV_j = Σ_i round(P_ij)·dO_i;  dS_ij = P_ij·(dO_i·v_j − D_i) at visible
 // entries;  dQ_i = scale·Σ_j dS_ij·k_j;  dK_j = scale·Σ_i dS_ij·q_i.
 
-using hopper::kStages;
 using hopper::Width;
 
 // D_i = Σ_d dO_id·O_id: DH / 8 threads per (b, i, h) row, one 16-byte load
@@ -528,17 +532,35 @@ __device__ __forceinline__ void row_terms(const BwdParams& p, long long row0, in
 
 template <int DH>
 constexpr int dkdv_smem_bytes() {
-  return 1024 + (2 + 2 * kStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
-         3 * kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+  constexpr int S = Width<DH>::kBwdStages;
+  return 1024 + (2 + 2 * S) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         3 * S * hopper::kRows * 4 + (2 * S + 1) * 8;
 }
+static_assert(dkdv_smem_bytes<256>() <= 232448, "the DH-256 dK/dV ring exceeds a block's "
+              "shared memory");
 
-// dK, dV: one block per (64 keys, head, batch), one consumer warpgroup
-// (warps 0..3) and one producer warp (warp 4); K and V tiles resident, Q, dO and the row terms stream through the
-// ring.  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS, m64n64 over DH / 16 k-steps); Pᵀ
-// and dSᵀ are formed in the accumulators, which are already in A-operand
-// layout; dV += Pᵀ·dO and dK += dSᵀ·Q (RS m64nDH, dO and Q read
-// transposed).  At least two blocks per SM (at DH 64, four accumulators of
-// 32 floats a thread); one at DH 128 (dK and dV 64 floats each).
+// dK, dV: one block per (64 keys, column part, head, batch), one consumer
+// warpgroup (warps 0..3) and one producer warp (warp 4); K and V tiles
+// resident, Q, dO and the row terms stream through the ring.  Sᵀ = K·Qᵀ and
+// dPᵀ = V·dOᵀ (SS, m64n64 over DH / 16 k-steps); Pᵀ and dSᵀ are formed in
+// the accumulators, which are already in A-operand layout; dV += Pᵀ·dO and
+// dK += dSᵀ·Q (RS m64nNC, dO and Q read transposed).  At least two blocks
+// per SM (at DH 64, four accumulators of 32 floats a thread); one at DH 128
+// (dK and dV 64 floats each).
+// DH 256: one warpgroup cannot hold both m64n256 accumulators (128 floats
+// each, 256 a thread against the 255-register limit), so the key tile's
+// dK and dV are split by columns over kDkdvSplit = 2 blocks, blockIdx.x =
+// 2·tile + part: each forms the whole Sᵀ and dPᵀ over the 256 columns and
+// accumulates columns 128·part.. of dK and dV (m64n128k16 RS from panel
+// 2·part of the Q and dO tiles; 64 + 64 floats a thread, as at DH 128).  Sᵀ
+// and dPᵀ are formed twice per key tile: 6 products of 64 x 64 x 256 per
+// query tile against the unsplit 4 (1.5x the operations), for twice the
+// blocks (the D3PM's cross-attention to 50 text slots gives 64 unsplit
+// blocks for 132 SMs) and a block's chain of 3 products, not 4; every
+// column of dK and dV keeps one writer and a fixed order of sums, so the
+// backward stays deterministic.  At DH 256 (ptxas, sm_90a, CUDA 12.8): 246
+// registers, no spill, 199,208 bytes of dynamic shared memory (2 stages);
+// the dQ kernel 229 registers, no spill, 198,184 bytes.
 template <int DH>
 __global__ void __launch_bounds__(160, Width<DH>::kDkdvBlocks)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -549,6 +571,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
   constexpr float kNegInf = hopper::kNegInf;
   constexpr int kTile = Width<DH>::kTileBytes;
+  constexpr int kStages = Width<DH>::kBwdStages;
+  constexpr int SPLIT = Width<DH>::kDkdvSplit;
+  constexpr int NC = DH / SPLIT;  // columns of dK and dV this block accumulates
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* ks = base;
@@ -564,7 +589,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* kvbar = empty + kStages;
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int j0 = blockIdx.x * kRows;
+  const int j0 = (blockIdx.x / SPLIT) * kRows;
+  const int c_base = (blockIdx.x % SPLIT) * NC;  // first column of this block's part
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* mask_b = p.mask + (long long)b * p.Tk;
   const long long row0 = ((long long)b * p.H + h) * p.Tq;
@@ -628,8 +654,11 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint8_t* v_tile = vs;
   const float sl2 = p.scale_log2;
 
-  constexpr int NO = DH / 2;  // dK / dV accumulators a thread
+  constexpr int NO = NC / 2;  // dK / dV accumulators a thread
   float dk[NO], dv[NO], st[32], dp[32];
+  // the part's first panel of the Q and dO tiles (columns c_base..; 64-row
+  // panels of 64 columns lie kRows·64·2 bytes apart)
+  const int part_off = c_base * kRows * 2;
 #pragma unroll
   for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kvbar, 0);
@@ -679,8 +708,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     to_operand(st, pa);
     to_operand(dp, sa);
     wgmma_fence();
-    gemm_pb<DH>(dv, pa, g_tile);  // dV += Pᵀ·dO
-    gemm_pb<DH>(dk, sa, q_tile);  // dK += dSᵀ·Q
+    gemm_pb<DH, NC>(dv, pa, g_tile + part_off);  // dV += Pᵀ·dO
+    gemm_pb<DH, NC>(dk, sa, q_tile + part_off);  // dK += dSᵀ·Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -690,9 +719,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // dK, dV are dense (B, Tk, H, Dh)
 #pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    const int col = 8 * c + 2 * t;
-    if (8 * c >= p.Dh) break;  // zero columns past the head width
+  for (int c = 0; c < NC / 8; ++c) {
+    const int col = c_base + 8 * c + 2 * t;
+    if (c_base + 8 * c >= p.Dh) break;  // zero columns past the head width
     if (kr0 < p.Tk) {
       const long long off = ((long long)b * p.Tk + kr0) * p.H * p.Dh + (long long)h * p.Dh + col;
       *reinterpret_cast<uint32_t*>(p.dk + off) =
@@ -710,15 +739,19 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int DH>
 constexpr int dq_smem_bytes() {
-  return 1024 + (2 + 2 * kStages) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
-         kStages * hopper::kRows * 4 + (2 * kStages + 1) * 8;
+  constexpr int S = Width<DH>::kBwdStages;
+  return 1024 + (2 + 2 * S) * Width<DH>::kTileBytes + Width<DH>::kZeroBytes +
+         S * hopper::kRows * 4 + (2 * S + 1) * 8;
 }
+static_assert(dq_smem_bytes<256>() <= 232448, "the DH-256 dQ ring exceeds a block's shared "
+              "memory");
 
 // dQ: one block per (64 queries, head, batch), one consumer warpgroup
 // (warps 0..3) and one producer warp (warp 4); Q and dO tiles resident, K/V tiles and key flags stream through the
 // ring.  S = Q·Kᵀ and dP = dO·Vᵀ (SS), dS in the accumulators, dQ += dS·K
 // (RS m64nDH, K read transposed).
-// At least three blocks per SM; one at DH 128.
+// At least three blocks per SM; one at DH 128 and 256 (at 256 the m64n256
+// dQ accumulator is 128 floats a thread, S and dP 32 each).
 template <int DH>
 __global__ void __launch_bounds__(160, Width<DH>::kDqBlocks)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -729,6 +762,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kRows = hopper::kRows;  // the tile, not the SIMT kernels' block
   constexpr float kNegInf = hopper::kNegInf;
   constexpr int kTile = Width<DH>::kTileBytes;
+  constexpr int kStages = Width<DH>::kBwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* qs = base;
@@ -862,28 +896,30 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype) {
+bool args_ok(int B, int Tq, int Tk, int H, int Dh, int dtype, float scale) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 && H <= 65535 && B <= 65535 &&
-         hopper::kernel_width(Dh) && (dtype == 0 || dtype == 1);
+         (dtype == 0 || dtype == 1) && hopper::kernel_width(Dh, dtype) && scale > 0.f &&
+         scale < INFINITY;
 }
 
 template <typename T, int DW>
 int launch_fwd_simt(const void* q, const void* k, const void* v, const float* mask, void* o,
                     float* lse, Strides st, int B, int Tq, int Tk, int H, int Dh, int causal,
-                    cudaStream_t s) {
+                    float scale, cudaStream_t s) {
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
   fwd_kernel<T, DW><<<grid, kRows * Simt<DW>::kSplit, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), lse, st, Tq, Tk, H,
-      Dh, causal, rsqrtf((float)Dh));
+      Dh, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask,
                void* o, float* lse, Strides st, int B, int Tq, int Tk, int H,
-               int Dh, int causal, cudaStream_t s) {
-#define TFA_FWD(DW) launch_fwd_simt<T, DW>(q, k, v, mask, o, lse, st, B, Tq, Tk, H, Dh, causal, s)
+               int Dh, int causal, float scale, cudaStream_t s) {
+#define TFA_FWD(DW) \
+  launch_fwd_simt<T, DW>(q, k, v, mask, o, lse, st, B, Tq, Tk, H, Dh, causal, scale, s)
   switch (hopper::simt_width(Dh)) {
     case 8: return TFA_FWD(8);
     case 16: return TFA_FWD(16);
@@ -922,8 +958,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask,
                const void* o, const float* lse, const void* dout, void* dq,
                void* dk, void* dv, float* delta, Strides st, int do_sb,
                int do_st, int B, int Tq, int Tk, int H, int Dh, int causal,
-               cudaStream_t s) {
-  const float scale = rsqrtf((float)Dh);
+               float scale, cudaStream_t s) {
   const long long rows = (long long)B * Tq * H;
   bwd_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, st.o_sb,
@@ -961,7 +996,7 @@ int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* 
                       const void* o, const float* lse, const void* dout, void* dq,
                       void* dk, void* dv, float* delta, const Strides& st, int do_sb,
                       int do_st, int B, int Tq, int Tk, int H, int Dh, int causal,
-                      cudaStream_t s) {
+                      float scale, cudaStream_t s) {
   using hopper::make_map;
   CUtensorMap mq, mk, mv, mdo;
   int rc = make_map<DH>(&mq, q, B, Tq, H, Dh, st.q_sb, st.q_st);
@@ -976,13 +1011,13 @@ int launch_bwd_hopper(const void* q, const void* k, const void* v, const float* 
       st.o_sb, st.o_st, do_sb, do_st, B, Tq, H, Dh);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const float scale = rsqrtf((float)Dh);
   const BwdParams p{mask, lse, delta, static_cast<hopper::bf16*>(dq),
                     static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv),
                     Tq, Tk, H, Dh, causal, scale, scale * hopper::kLog2e, 1.f / (float)Tk};
   constexpr int R = hopper::kRows;
-  rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel<DH>>(dkdv_smem_bytes<DH>(), (Tk + R - 1) / R,
-                                                    H, B, mq, mk, mv, mdo, p, s);
+  rc = launch_bwd_kernel<bwd_dkdv_wgmma_kernel<DH>>(
+      dkdv_smem_bytes<DH>(), (Tk + R - 1) / R * Width<DH>::kDkdvSplit, H, B, mq, mk, mv, mdo,
+      p, s);
   if (rc != 0) return rc;
   return launch_bwd_kernel<bwd_dq_wgmma_kernel<DH>>(dq_smem_bytes<DH>(), (Tq + R - 1) / R, H,
                                                     B, mq, mk, mv, mdo, p, s);
@@ -992,25 +1027,25 @@ using hopper::tma_ok;
 
 // The forward launcher's route: 1 = tensor cores, 0 = SIMT.
 bool fwd_route(const void* q, const void* k, const void* v, const void* o, const Strides& st,
-               int B, int Tq, int Tk, int Dh, int dtype) {
+               int B, int Tq, int Tk, int dtype) {
   return hopper::tensor_core_route(
-      dtype, Dh,
+      dtype,
       tma_ok(q, B, st.q_sb, Tq, st.q_st) && tma_ok(k, B, st.k_sb, Tk, st.k_st) &&
           tma_ok(v, B, st.v_sb, Tk, st.v_st) && tma_ok(o, B, st.o_sb, Tq, st.o_st));
 }
 
 // The backward launcher's route: the forward's, with dO aligned too.
 bool bwd_route(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const Strides& st, int do_sb, int do_st, int B, int Tq, int Tk, int Dh,
-               int dtype) {
-  return fwd_route(q, k, v, o, st, B, Tq, Tk, Dh, dtype) && tma_ok(dout, B, do_sb, Tq, do_st);
+               const Strides& st, int do_sb, int do_st, int B, int Tq, int Tk, int dtype) {
+  return fwd_route(q, k, v, o, st, B, Tq, Tk, dtype) && tma_ok(dout, B, do_sb, Tq, do_st);
 }
 
 }  // namespace
 
 // Strides are in elements; the head and Dh dimensions are dense (head
 // stride Dh, element stride 1).  dtype: 0 = float32, 1 = bfloat16.
-// causal: 0 or 1.  Each entry returns cudaGetLastError() after its launches
+// causal: 0 or 1.  scale: the scores' factor, Dh^-0.5 of the true head
+// width (a zero-padded copy's Dh is wider).  Each entry returns cudaGetLastError() after its launches
 // (0 = launched), -1 when the arguments are outside what it takes, or
 // another nonzero code when a TMA tensor map cannot be encoded; *route_out
 // (when not null) is set to the route taken: 1 = tensor cores, 0 = SIMT.
@@ -1020,20 +1055,21 @@ extern "C" int train_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, void* o,
     void* lse, int q_sb, int q_st, int k_sb, int k_st, int v_sb, int v_st,
     int o_sb, int o_st, int B, int Tq, int Tk, int H, int Dh, int causal,
-    int dtype, void* stream, int* route_out) {
-  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
+    int dtype, float scale, void* stream, int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype, scale)) return -1;
   const Strides st{q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st};
   const float* mask = static_cast<const float*>(kv_mask);
   float* L = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = fwd_route(q, k, v, o, st, B, Tq, Tk, Dh, dtype);
+  const bool tc = fwd_route(q, k, v, o, st, B, Tq, Tk, dtype);
   if (route_out != nullptr) *route_out = tc ? 1 : 0;
   if (tc)
     return hopper::launch_fwd_at<true>(Dh, q, k, v, mask, o, L, q_sb, q_st, k_sb, k_st, v_sb,
-                                       v_st, o_sb, o_st, B, Tq, Tk, H, causal, s);
+                                       v_st, o_sb, o_st, B, Tq, Tk, H, causal, scale, s);
   if (dtype == 0)
-    return launch_fwd<float>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, s);
-  return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, s);
+    return launch_fwd<float>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, scale, s);
+  return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, L, st, B, Tq, Tk, H, Dh, causal, scale,
+                                   s);
 }
 
 // dq: (B, Tq, H, Dh), dk, dv: (B, Tk, H, Dh), all dense; delta: (B, H, Tq)
@@ -1043,31 +1079,32 @@ extern "C" int train_flash_attention_bwd(
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
     void* dv, void* delta, int q_sb, int q_st, int k_sb, int k_st, int v_sb,
     int v_st, int o_sb, int o_st, int do_sb, int do_st, int B, int Tq, int Tk,
-    int H, int Dh, int causal, int dtype, void* stream, int* route_out) {
-  if (!args_ok(B, Tq, Tk, H, Dh, dtype)) return -1;
+    int H, int Dh, int causal, int dtype, float scale, void* stream, int* route_out) {
+  if (!args_ok(B, Tq, Tk, H, Dh, dtype, scale)) return -1;
   const Strides st{q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st};
   const float* mask = static_cast<const float*>(kv_mask);
   const float* L = static_cast<const float*>(lse);
   float* D = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = bwd_route(q, k, v, o, dout, st, do_sb, do_st, B, Tq, Tk, Dh, dtype);
+  const bool tc = bwd_route(q, k, v, o, dout, st, do_sb, do_st, B, Tq, Tk, dtype);
   if (route_out != nullptr) *route_out = tc ? 1 : 0;
   if (tc) {
 #define TFA_HOPPER(DH)                                                                     \
   launch_bwd_hopper<DH>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st, do_sb, do_st, B, Tq, \
-                        Tk, H, Dh, causal, s)
+                        Tk, H, Dh, causal, scale, s)
     switch (hopper::instantiated_width(Dh)) {
       case 8: return TFA_HOPPER(8);
       case 16: return TFA_HOPPER(16);
       case 32: return TFA_HOPPER(32);
       case 64: return TFA_HOPPER(64);
-      default: return TFA_HOPPER(128);
+      case 128: return TFA_HOPPER(128);
+      default: return TFA_HOPPER(256);
     }
 #undef TFA_HOPPER
   }
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
-                             do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
+                             do_sb, do_st, B, Tq, Tk, H, Dh, causal, scale, s);
   return launch_bwd<__nv_bfloat16>(q, k, v, mask, o, L, dout, dq, dk, dv, D, st,
-                                   do_sb, do_st, B, Tq, Tk, H, Dh, causal, s);
+                                   do_sb, do_st, B, Tq, Tk, H, Dh, causal, scale, s);
 }

@@ -106,8 +106,8 @@ def compile_source(name: str, log=print) -> Path:
 SASS_OPCODES = ("HGMMA", "UTMALDG")
 #: wgmma shapes (M x N x K) each library holds: the m64n64k16 products that
 #: reduce over the head width, and the m64nDHk16 products whose output is
-#: the head width, at each instantiated width (8, 16, 32, 64, 128)
-HGMMA_SHAPES = ("64x8x16", "64x16x16", "64x32x16", "64x64x16", "64x128x16")
+#: the head width, at each instantiated width (8, 16, 32, 64, 128, 256)
+HGMMA_SHAPES = ("64x8x16", "64x16x16", "64x32x16", "64x64x16", "64x128x16", "64x256x16")
 
 
 def sass_counts(lib: Path) -> dict[str, int] | str:

@@ -11,7 +11,9 @@ For a tensor on the CPU the wrapper runs the plain version; for a CUDA tensor
 it launches the kernel or raises, at any head width up to ``MAX_DH``
 (``kernel_width``).  The launcher reports the route it took (tensor cores or
 SIMT, ``route.tensor_core_route``'s rule), which the wrapper counts in
-``launches_tc``.
+``launches_tc``.  A bf16 call at a width that is not a multiple of 8 is
+launched on zero-padded copies (``pad_for_tensor_cores``) with the scale of
+its true width, and the output sliced back.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .attention import NEG_INF
 
@@ -36,8 +39,8 @@ def _kernel():
         from . import _build
 
         fn = _build.load("masked_attention").masked_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-                       + [ctypes.POINTER(ctypes.c_int)])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_float]
+                       + [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -46,8 +49,8 @@ def _kernel():
 def masked_attention_plain(q, k, v, kv_mask):
     """Plain PyTorch version (≡ ``_dense_ref``): fp32 scores scaled by
     Dh^-0.5, finite ``NEG_INF`` on masked keys, row softmax, p cast to v's
-    dtype, p·v accumulated in fp32.  q: (B, Tq, H, Dh); k, v: (B, Tk, H, Dh);
-    kv_mask: (B, Tk).  Returns (B, Tq, H, Dh) in v's dtype."""
+    dtype, p·v accumulated in fp32.  q: (B, Tq, H, Dh); k, v: (B, Tk, H,
+    Dh); kv_mask: (B, Tk).  Returns (B, Tq, H, Dh) in v's dtype."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
     s = torch.where(kv_mask[:, None, None, :] > 0, s, NEG_INF)
@@ -57,9 +60,30 @@ def masked_attention_plain(q, k, v, kv_mask):
 
 
 def kernel_width(Dh: int) -> bool:
-    """The head widths both kernels take (``hopper::kernel_width``): any
-    from 1 to ``MAX_DH``."""
+    """The head widths both wrappers take: any from 1 to ``MAX_DH`` (the
+    libraries' ``hopper::kernel_width`` takes the same in fp32 and the
+    multiples of 8 in bf16: the wrappers pad the rest,
+    ``pad_for_tensor_cores``)."""
     return 1 <= Dh <= MAX_DH
+
+
+def padded_width(Dh: int) -> int:
+    """The head width the tensor cores run a ``Dh`` call at: the next
+    multiple of 8 (TMA's 16-byte rows)."""
+    return -(-Dh // 8) * 8
+
+
+def pad_for_tensor_cores(*tensors):
+    """The (B, T, H, Dh) tensors as the libraries take them: unchanged, or,
+    in bf16 at a width that is not a multiple of 8, contiguous copies
+    zero-padded to ``padded_width`` (zero columns add nothing to q·k, and
+    give zero output columns that the caller slices away).  The libraries
+    refuse such a bf16 width unpadded; the copies are ``route.tma_aligned``
+    whatever the views' strides, so they take the tensor cores."""
+    Dh = tensors[0].shape[-1]
+    if Dh % 8 == 0 or tensors[0].dtype != torch.bfloat16:
+        return tensors
+    return tuple(F.pad(t, (0, padded_width(Dh) - Dh)) for t in tensors)
 
 
 def check_kernel_width(Dh: int):
@@ -105,7 +129,8 @@ def masked_attention(q, k, v, kv_mask):
     be strided, as in a split of a fused qkv projection); kv_mask: (B, Tk)
     float32.  Returns a new contiguous (B, Tq, H, Dh) tensor in q's dtype.
     On a CUDA tensor with grad enabled and an input that requires grad it
-    raises rather than detach."""
+    raises rather than detach.  Scores are scaled by Dh^-0.5 of q's width,
+    also when the kernel runs on padded copies."""
     check_inputs(q, k, v, kv_mask)
     if masked_attention.shapes is not None:
         masked_attention.shapes[(*q.shape, k.shape[1])] += 1
@@ -119,8 +144,11 @@ def masked_attention(q, k, v, kv_mask):
                            "goes through ops/train_flash_attention.py (ops/route.attend)")
     B, Tq, H, Dh = q.shape
     check_kernel_width(Dh)
+    scale = Dh ** -0.5
+    q, k, v = pad_for_tensor_cores(q, k, v)
+    W = q.shape[-1]  # Dh, or its padded width
     Tk = k.shape[1]
-    o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Tq, H, W), dtype=q.dtype, device=q.device)
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -128,12 +156,12 @@ def masked_attention(q, k, v, kv_mask):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), o.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-            B, Tq, Tk, H, Dh, _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
+            B, Tq, Tk, H, W, _DTYPE_CODE[q.dtype], scale, stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"masked_attention kernel launch failed: error {rc}")
     masked_attention.launches += 1
     masked_attention.launches_tc += route.value
-    return o
+    return o if W == Dh else o[..., :Dh].contiguous()
 
 
 #: kernel launches (CUDA tensors only); set to 0 before a run to count it

@@ -8,17 +8,22 @@ and which route a call takes on the card.
   (``masked_attention``), or the training kernel's forward for a causal
   call, which the forward-only kernel does not take.
 
-Inside a wrapper, on a CUDA tensor, by the head width Dh (one rule in
-Python and in ``csrc/hopper_attention.cuh``):
+Inside a wrapper, on a CUDA tensor, by dtype, alignment and the head width
+Dh (``tensor_core_route``; the libraries' rule is
+``hopper::tensor_core_route`` in ``csrc/hopper_attention.cuh``):
 
-* bf16 at a multiple of 8 up to ``MAX_TC_DH`` (128) with every tensor
-  ``tma_aligned``: the tensor cores (wgmma fed by TMA), at the next of the
-  instantiated widths 8, 16, 32, 64 and 128 up;
-* fp32, unaligned views, and the other widths up to ``MAX_DH`` (256; not
-  a multiple of 8, or past 128): the SIMT kernels
-  (``tensor_core_route``);
-* a wider head: no kernel; the wrapper raises.  No route is a fallback
-  from a failed build or launch: those raise too.
+* bf16: the tensor cores (wgmma fed by TMA), at the next of the
+  instantiated widths 8, 16, 32, 64, 128 and 256 up, when every tensor is
+  ``tma_aligned``; bf16 views at a multiple of 8 that are not: the SIMT
+  kernels.  A width that is not a multiple of 8 is the wrappers' to
+  handle, and only theirs: they launch it on contiguous zero-padded copies
+  at the next multiple of 8 with its own Dh^-0.5
+  (``masked_attention.pad_for_tensor_cores``) and slice the results back,
+  so it always takes the tensor cores; the libraries refuse it unpadded;
+* fp32: the SIMT kernels, at any Dh;
+* a head wider than ``masked_attention.MAX_DH`` (256): no kernel; the
+  wrapper raises.  No route is a fallback from a failed build or launch:
+  those raise too.
 
 The JAX package sends only the DiT self-attention under ``attn_impl:
 flash`` to its training kernel and everything else to XLA's dense path;
@@ -32,10 +37,7 @@ import torch
 
 from . import masked_attention as _serve
 from . import train_flash_attention as _train
-from .masked_attention import MAX_DH, kernel_width
-
-#: the widest head on the tensor cores (``hopper::kTcDhMax``)
-MAX_TC_DH = 128
+from .masked_attention import check_kernel_width
 
 
 def attend(q, k, v, kv_mask, causal: bool = False):
@@ -57,14 +59,12 @@ def tma_aligned(*tensors) -> bool:
 
 
 def tensor_core_route(Dh: int, dtype: torch.dtype, aligned: bool) -> bool:
-    """The rule both libraries follow (``hopper::tensor_core_route``): True
-    when a call runs on the tensor cores (wgmma fed by TMA), False when it
-    runs the SIMT kernels.  bf16 at a multiple of 8 up to ``MAX_TC_DH``
-    (``hopper::tc_width``) with every tensor ``tma_aligned`` takes the
-    tensor cores; fp32, unaligned views and the other widths up to
-    ``MAX_DH`` take SIMT.  Raises ValueError for a width no kernel takes
-    (not ``kernel_width``), as the wrappers do."""
-    if not kernel_width(Dh):
-        raise ValueError(f"head width {Dh}: no attention kernel takes a head wider than {MAX_DH}")
-    return (dtype == torch.bfloat16 and bool(aligned)
-            and Dh % 8 == 0 and 8 <= Dh <= MAX_TC_DH)
+    """True when a wrapper's call runs on the tensor cores (wgmma fed by
+    TMA), False when it runs the SIMT kernels, for tensors that are
+    ``tma_aligned`` or not (``aligned``).  bf16 takes the tensor cores when
+    aligned, and at a width that is not a multiple of 8 always (the
+    wrappers' padded copies are aligned); fp32 takes SIMT.  Raises
+    ValueError for a head wider than ``masked_attention.MAX_DH``, as the
+    wrappers do."""
+    check_kernel_width(Dh)
+    return dtype == torch.bfloat16 and (bool(aligned) or Dh % 8 != 0)

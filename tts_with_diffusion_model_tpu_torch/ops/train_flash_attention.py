@@ -16,7 +16,10 @@ by autograd); for a CUDA tensor it launches the kernel or raises, at any
 head width up to ``MAX_DH`` (``kernel_width``).  The launchers report the
 route each forward and backward took (tensor cores or SIMT,
 ``route.tensor_core_route``'s rule), counted in ``launches_tc`` and
-``backward_launches_tc``.
+``backward_launches_tc``.  A bf16 call at a width that is not a multiple
+of 8 is launched, forward and backward, on zero-padded copies
+(``masked_attention.pad_for_tensor_cores``) with the scale of its true
+width, and o, dq, dk and dv sliced back.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import ctypes
 import torch
 
 from .attention import NEG_INF
-from .masked_attention import _DTYPE_CODE, check_inputs, check_kernel_width
+from .masked_attention import _DTYPE_CODE, check_inputs, check_kernel_width, pad_for_tensor_cores
 
 _fns = None
 
@@ -39,8 +42,9 @@ def _kernels():
         lib = _build.load("train_flash_attention")
         fwd, bwd = lib.train_flash_attention_fwd, lib.train_flash_attention_bwd
         route_out = [ctypes.POINTER(ctypes.c_int)]
-        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p] + route_out
-        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 17 + [ctypes.c_void_p] + route_out
+        tail = [ctypes.c_float, ctypes.c_void_p] + route_out  # scale, stream, route
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + tail
+        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 17 + tail
         fwd.restype = bwd.restype = ctypes.c_int
         _fns = fwd, bwd
     return _fns
@@ -79,9 +83,14 @@ def _heads_dense(t):
 
 
 def _forward(q, k, v, kv_mask, causal: bool):
+    """The forward launch → (o, lse), on padded copies at a bf16 width off 8
+    (o sliced back to Dh)."""
     B, Tq, H, Dh = q.shape
+    scale = Dh ** -0.5
+    q, k, v = pad_for_tensor_cores(q, k, v)
+    W = q.shape[-1]  # Dh, or its padded width
     Tk = k.shape[1]
-    o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Tq, H, W), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
@@ -90,21 +99,27 @@ def _forward(q, k, v, kv_mask, causal: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), o.data_ptr(),
             lse.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
+            B, Tq, Tk, H, W, int(causal), _DTYPE_CODE[q.dtype], scale, stream,
+            ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"train_flash_attention forward launch failed: error {rc}")
     train_flash_attention.launches += 1
     train_flash_attention.launches_tc += route.value
-    return o, lse
+    return (o if W == Dh else o[..., :Dh].contiguous()), lse
 
 
 def _backward(q, k, v, kv_mask, o, lse, do, causal: bool):
+    """The backward launches (D, dK/dV, dQ) → (dq, dk, dv), on padded copies
+    as in ``_forward``."""
     B, Tq, H, Dh = q.shape
+    scale = Dh ** -0.5
     Tk = k.shape[1]
     do = _heads_dense(do.to(q.dtype))
-    dq = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Tk, H, Dh), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Tk, H, Dh), dtype=q.dtype, device=q.device)
+    q, k, v, o, do = pad_for_tensor_cores(q, k, v, o, do)
+    W = q.shape[-1]
+    dq = torch.empty((B, Tq, H, W), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, W), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, W), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
@@ -114,11 +129,14 @@ def _backward(q, k, v, kv_mask, o, lse, do, causal: bool):
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-            B, Tq, Tk, H, Dh, int(causal), _DTYPE_CODE[q.dtype], stream, ctypes.byref(route))
+            B, Tq, Tk, H, W, int(causal), _DTYPE_CODE[q.dtype], scale, stream,
+            ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"train_flash_attention backward launch failed: error {rc}")
     train_flash_attention.backward_launches += 1
     train_flash_attention.backward_launches_tc += route.value
+    if W != Dh:
+        dq, dk, dv = (g[..., :Dh].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -38,20 +38,23 @@ import torch
 _K1, _K2 = "masked_attention", "train_flash_attention"
 _HEADER = "hopper_attention.cuh"
 _TO_SIMT = (_HEADER,
-            "return dtype == 1 && tc_width(Dh) && aligned;",
+            "return dtype == 1 && aligned;",
             "return false;")
 #: (variant, library, [(file in csrc/, text, replacement)]); each library's
 #: "tree" is its sources as they are
 VARIANTS = [
     ("tree", _K1, []),
     ("simt", _K1, [_TO_SIMT]),
-    ("fwd_s2", _K1, [(_HEADER, "constexpr int kFwdStages = 3;", "constexpr int kFwdStages = 2;")]),
-    ("fwd_s4", _K1, [(_HEADER, "constexpr int kFwdStages = 3;", "constexpr int kFwdStages = 4;")]),
-    ("fwd_lb4", _K1, [(_HEADER, "kFwdBlocks = DH == 128 ? 1 : 3;",
-                       "kFwdBlocks = DH == 128 ? 1 : 4;")]),
+    ("fwd_s2", _K1, [(_HEADER, "static constexpr int kFwdStages = 3;",
+                      "static constexpr int kFwdStages = 2;")]),
+    # four stages do not fit a block at DH 256: it keeps three
+    ("fwd_s4", _K1, [(_HEADER, "static constexpr int kFwdStages = 3;",
+                      "static constexpr int kFwdStages = DH == 256 ? 3 : 4;")]),
+    ("fwd_lb4", _K1, [(_HEADER, "kFwdBlocks = DH >= 128 ? 1 : 3;",
+                       "kFwdBlocks = DH >= 128 ? 1 : 4;")]),
     ("tree", _K2, []),
     ("simt", _K2, [_TO_SIMT]),
-    ("bwd_s2", _K2, [(_HEADER, "constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
+    ("bwd_s2", _K2, [(_HEADER, "kBwdStages = DH == 256 ? 2 : 3;", "kBwdStages = 2;")]),
 ]
 
 

@@ -17,6 +17,7 @@ raises ``SmokeError``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -117,8 +118,12 @@ def phase_build(device: torch.device) -> float:
     libs = _build.build_all(log=log)
     secs = time.perf_counter() - t0
     log(f"build: {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {secs:.2f} s via nvcc + ctypes")
+    # one cuobjdump per library, all started together (each takes seconds)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        sass = dict(zip(sorted(libs), pool.map(_build.sass_counts,
+                                               [libs[n] for n in sorted(libs)])))
     for name, path in sorted(libs.items()):
-        counts = _build.sass_counts(path)
+        counts = sass[name]
         if isinstance(counts, str):
             log(f"sass: {path.name}: {counts}")
             continue
@@ -248,8 +253,9 @@ def bound_ms(B, Tq, Tk, H, Dh, dtype, pairs: tuple[int, int] | None = None) -> t
 
 def unaligned(t):
     """A copy of the (B, T, H, Dh) tensor ``t`` whose time stride is H·Dh + 4
-    elements, not a multiple of 8: the libraries then take the SIMT route
-    (``ops/route.tma_aligned``), on the same values."""
+    elements, not a multiple of 8: at a Dh that is a multiple of 8 the
+    libraries then take the SIMT route (``ops/route.tma_aligned``), on the
+    same values."""
     B, T, H, Dh = t.shape
     buf = torch.zeros(B, T, H * Dh + 4, dtype=t.dtype, device=t.device)
     view = buf[..., :H * Dh].unflatten(-1, (H, Dh))
